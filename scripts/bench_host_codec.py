@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Host relayout codec benchmark (pure CPU — no TPU needed).
+"""Host relayout codec benchmark (pure CPU — no accelerator needed).
 
 Measures the native feed codecs at steady state (reused aligned output
 buffers — a fresh ~50 MB output page-faults every line, ~3x over steady
@@ -51,7 +51,7 @@ def main():
                     help="also time the numpy fallback (slow)")
     args = ap.parse_args()
 
-    from fdreadoutlibs_tpu import native
+    from fdreadoutlibs_jax import native
     if native.load() is None:
         print(json.dumps({"error": "native library unavailable"}))
         return 1

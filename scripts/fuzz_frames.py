@@ -75,7 +75,7 @@ class WIBEthRig(Rig):
     has_seq = True
 
     def __init__(self):
-        from fdreadoutlibs_tpu.formats import wibeth
+        from fdreadoutlibs_jax.formats import wibeth
         self.f = wibeth
         self.frame_size = wibeth.FRAME_SIZE
         self.header_bytes = 8 * wibeth.HEADER_WORDS
@@ -97,8 +97,8 @@ class WIBEthRig(Rig):
         return frames
 
     def make_proc(self, backend):
-        from fdreadoutlibs_tpu.stream import WIBEthFrameProcessor
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
+        from fdreadoutlibs_jax.stream import WIBEthFrameProcessor
+        from fdreadoutlibs_jax.stream.transport import QueueSender
         sink = QueueSender()
         proc = WIBEthFrameProcessor(tp_sink=sink)
         proc.conf({"crate_id": 1, "slot_id": 2, "link_id": 3,
@@ -120,7 +120,7 @@ class WIB2Rig(Rig):
     name = "wib2"
 
     def __init__(self):
-        from fdreadoutlibs_tpu.formats import wib2
+        from fdreadoutlibs_jax.formats import wib2
         self.f = wib2
         self.frame_size = wib2.SUPERCHUNK_SIZE
         self.header_bytes = 4 * wib2.HEADER_WORDS
@@ -141,8 +141,8 @@ class WIB2Rig(Rig):
         return sc
 
     def make_proc(self, backend):
-        from fdreadoutlibs_tpu.stream import WIB2FrameProcessor
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
+        from fdreadoutlibs_jax.stream import WIB2FrameProcessor
+        from fdreadoutlibs_jax.stream.transport import QueueSender
         sink = QueueSender()
         proc = WIB2FrameProcessor(tp_sink=sink)
         proc.conf({"crate_id": 0, "slot_id": 0, "link_id": 0,
@@ -161,7 +161,7 @@ class ProtoWIBRig(Rig):
     name = "protowib"
 
     def __init__(self):
-        from fdreadoutlibs_tpu.formats import protowib
+        from fdreadoutlibs_jax.formats import protowib
         self.f = protowib
         self.frame_size = protowib.SUPERCHUNK_SIZE
         self.header_bytes = protowib.HEADER_BYTES
@@ -180,9 +180,9 @@ class ProtoWIBRig(Rig):
         return sc
 
     def make_proc(self, backend):
-        from fdreadoutlibs_tpu.stream.protowib import WIBFrameProcessor
-        from fdreadoutlibs_tpu.tp.wib_tp_handler import WIBTPHandler
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
+        from fdreadoutlibs_jax.stream.protowib import WIBFrameProcessor
+        from fdreadoutlibs_jax.tp.wib_tp_handler import WIBTPHandler
+        from fdreadoutlibs_jax.stream.transport import QueueSender
         tp_q = QueueSender()
         handler = WIBTPHandler(tp_sink=tp_q, tpset_sink=QueueSender(),
                                tp_timeout=100_000, tpset_window_size=2_000)
@@ -202,7 +202,7 @@ class DAPHNEStreamRig(Rig):
     name = "daphne_stream"
 
     def __init__(self):
-        from fdreadoutlibs_tpu.formats import daphne
+        from fdreadoutlibs_jax.formats import daphne
         self.f = daphne
         self.frame_size = daphne.STREAM_SUPERCHUNK_SIZE
         self.header_bytes = 4 * daphne.HEADER_WORDS
@@ -225,8 +225,8 @@ class DAPHNEStreamRig(Rig):
         return sc
 
     def make_proc(self, backend):
-        from fdreadoutlibs_tpu.stream.daphne import DAPHNEStreamFrameProcessor
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
+        from fdreadoutlibs_jax.stream.daphne import DAPHNEStreamFrameProcessor
+        from fdreadoutlibs_jax.stream.transport import QueueSender
         sink = QueueSender()
         proc = DAPHNEStreamFrameProcessor(tp_sink=sink)
         proc.conf({"enable_tpg": True, "tpg_threshold": 300,
@@ -251,7 +251,7 @@ class DAPHNERig(Rig):
     checks_ts = False
 
     def __init__(self):
-        from fdreadoutlibs_tpu.formats import daphne
+        from fdreadoutlibs_jax.formats import daphne
         self.f = daphne
         self.frame_size = daphne.SUPERCHUNK_SIZE
         self.header_bytes = 4 * daphne.HEADER_WORDS
@@ -274,8 +274,8 @@ class DAPHNERig(Rig):
         return sc
 
     def make_proc(self, backend):
-        from fdreadoutlibs_tpu.stream.daphne import DAPHNEFrameProcessor
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
+        from fdreadoutlibs_jax.stream.daphne import DAPHNEFrameProcessor
+        from fdreadoutlibs_jax.stream.transport import QueueSender
         sink = QueueSender()
         proc = DAPHNEFrameProcessor(tp_sink=sink)
         proc.conf({"enable_tpg": True, "tpg_threshold": 300})
@@ -291,7 +291,7 @@ class TDERig(Rig):
     name = "tde"
 
     def __init__(self):
-        from fdreadoutlibs_tpu.formats import tde
+        from fdreadoutlibs_jax.formats import tde
         self.f = tde
         self.frame_size = tde.FRAME_SIZE
         self.header_bytes = tde.HEADER_BYTES
@@ -312,8 +312,8 @@ class TDERig(Rig):
         return frames
 
     def make_proc(self, backend):
-        from fdreadoutlibs_tpu.stream import TDEFrameProcessor
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
+        from fdreadoutlibs_jax.stream import TDEFrameProcessor
+        from fdreadoutlibs_jax.stream.transport import QueueSender
         sink = QueueSender()
         proc = TDEFrameProcessor(tp_sink=sink)
         proc.conf({"crate_id": 0, "slot_id": 0, "link_id": 0,
@@ -345,7 +345,7 @@ class SSPRig(Rig):
     checks_ts = False         # SSP has no continuity check (reference parity)
 
     def __init__(self):
-        from fdreadoutlibs_tpu.formats import ssp
+        from fdreadoutlibs_jax.formats import ssp
         self.f = ssp
         self.frame_size = ssp.FRAME_SIZE
         self.header_bytes = ssp.HEADER_SIZE
@@ -359,7 +359,7 @@ class SSPRig(Rig):
         return frames
 
     def make_proc(self, backend):
-        from fdreadoutlibs_tpu.stream import SSPFrameProcessor
+        from fdreadoutlibs_jax.stream import SSPFrameProcessor
         proc = SSPFrameProcessor()
         proc.conf({})
         proc.start()
@@ -450,7 +450,7 @@ def drive(rig, payloads, bounds, backend):
 def truncated_file_case(rng):
     """FileSourceBuffer must drop a partial tail payload and reject
     sub-payload files (readoutlibs FileSourceBuffer semantics)."""
-    from fdreadoutlibs_tpu.stream.emulator import FileSourceBuffer
+    from fdreadoutlibs_jax.stream.emulator import FileSourceBuffer
     size = int(rng.integers(64, 8192))
     n_whole = int(rng.integers(0, 4))
     tail = int(rng.integers(1, size))

@@ -44,10 +44,10 @@ def main() -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-    from fdreadoutlibs_tpu.ops.hits import concat_hits, decode_dense
-    from fdreadoutlibs_tpu.ops.reference import run_reference
-    from fdreadoutlibs_tpu.ops.scan import process_window_scan, state_to_jnp
+    from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
+    from fdreadoutlibs_jax.ops.hits import concat_hits, decode_dense
+    from fdreadoutlibs_jax.ops.reference import run_reference
+    from fdreadoutlibs_jax.ops.scan import process_window_scan, state_to_jnp
     from test_fuzz_semantics import C, _case
 
     t0 = time.time()

@@ -40,10 +40,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from fdreadoutlibs_tpu.formats.trigprim import TP_DTYPE, make_tps  # noqa: E402
-from fdreadoutlibs_tpu.tp.latency_buffer import (  # noqa: E402
+from fdreadoutlibs_jax.formats.trigprim import TP_DTYPE, make_tps  # noqa: E402
+from fdreadoutlibs_jax.tp.latency_buffer import (  # noqa: E402
     LatencyBuffer, NativeLatencyBufferAdapter)
-from fdreadoutlibs_tpu.tp.request_handler import TPRequestHandler  # noqa: E402
+from fdreadoutlibs_jax.tp.request_handler import TPRequestHandler  # noqa: E402
 
 
 class ListSink:
@@ -314,7 +314,7 @@ def main(argv=None) -> int:
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    from fdreadoutlibs_tpu import native
+    from fdreadoutlibs_jax import native
     with_native = native.available()
     n_fail = 0
     for seed in range(args.start, args.start + args.n):

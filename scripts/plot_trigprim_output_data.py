@@ -4,7 +4,7 @@ scripts/plot_trigprim_output_data.py): scatter of channel vs time_start,
 color = adc_integral.
 
 Usage: python scripts/plot_trigprim_output_data.py TPS.txt [-o out.png]
-(the TPS.txt format is what `fdreadoutlibs_tpu.cli tpg-emulator
+(the TPS.txt format is what `fdreadoutlibs_jax.cli tpg-emulator
 --save-trigprim` writes).
 """
 

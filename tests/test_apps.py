@@ -1,20 +1,23 @@
-"""End-to-end application test (CPU, interpret mode, small config)."""
+"""End-to-end application tests (CPU: the scan backend and the kernel
+through the Pallas interpreter, small configs)."""
 
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import wibeth
+from fdreadoutlibs_jax.formats import wibeth
 
 # interpret_ingest fixture: tests/conftest.py
 
 
-@pytest.mark.parametrize("mode", ["plain", "fused", "words14", "time2"])
-def test_apa_readout_end_to_end(interpret_ingest, mode):
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+@pytest.mark.parametrize("mode", ["plain", "interpret", "time2",
+                                  "time2-interpret"])
+def test_apa_readout_end_to_end(mode):
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
     app = APAReadoutApp(n_links=2, threshold=499,
-                        fused_unpack=(mode == "fused"),
-                        words14_feed=(mode == "words14"),
-                        time2_feed=(mode == "time2"))
+                        pallas_interpret=mode.endswith("interpret"),
+                        time2_feed=mode.startswith("time2"))
+    assert app.backend == ("pallas" if mode.endswith("interpret")
+                           else "scan")
     ts = 100_000
     for b in range(3):
         frames = np.zeros((2, 1, wibeth.FRAME_SIZE), np.uint8)
@@ -43,9 +46,9 @@ def test_apa_readout_end_to_end(interpret_ingest, mode):
     assert tps["time_start"][0] == 100_000 + 2048 + 32 * 10
 
 def test_apa_record_fragment_and_cli_dump(interpret_ingest, tmp_path, capsys):
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
-    from fdreadoutlibs_tpu.tp.recorder import FragmentRecorder
-    from fdreadoutlibs_tpu.cli import main as cli_main
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.tp.recorder import FragmentRecorder
+    from fdreadoutlibs_jax.cli import main as cli_main
     app = APAReadoutApp(n_links=2, threshold=499, run_number=33)
     frames = np.zeros((2, 2, wibeth.FRAME_SIZE), np.uint8)
     for l in range(2):
@@ -70,25 +73,24 @@ def test_apa_record_fragment_and_cli_dump(interpret_ingest, tmp_path, capsys):
 
 
 def test_exclusive_ingest_mode_guards():
-    """fused_unpack packs state in words14 position order; the time2
-    feed runs the canonical-layout datapath — combining them would
-    decode hits against a permuted state stack (review r3)."""
+    """The app runs the kernel or the scan path; the numpy oracle and
+    unknown names are refused instead of silently falling back."""
     import pytest
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
     with pytest.raises(ValueError):
-        APAReadoutApp(n_links=1, fused_unpack=True, time2_feed=True)
+        APAReadoutApp(n_links=1, backend="reference")
     with pytest.raises(ValueError):
-        APAReadoutApp(n_links=1, words14_feed=True, time2_feed=True)
+        APAReadoutApp(n_links=1, backend="mosaic")
 
 
 def test_batched_assembly_matches_per_link(interpret_ingest):
     """The whole-APA vectorized TP assembly (apa_readout._assemble_batch)
     produces the identical TP multiset and per-link counters as 40
     per-link process_swtpg_hits calls (the reference-shaped path)."""
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
 
     def run(batched):
-        from fdreadoutlibs_tpu.utils.channel_map import make_map
+        from fdreadoutlibs_jax.utils.channel_map import make_map
         app = APAReadoutApp(n_links=3, threshold=200, algorithm="AbsRS",
                             batched_assembly=batched)
         # a mask on ONE link only: the batched path must match masks on
@@ -136,7 +138,7 @@ def test_pipelined_matches_unpipelined(interpret_ingest):
     batch N) produces the identical TP stream, hit counters, and raw
     retention as the synchronous path once flushed — overlap must change
     WHEN work happens, never WHAT comes out."""
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
 
     def run(pipelined):
         app = APAReadoutApp(n_links=2, threshold=200, algorithm="AbsRS",
@@ -178,8 +180,8 @@ def test_batched_assembly_conf_change_applies(interpret_ingest):
     """A channel_mask_set change AFTER the first batch must take effect in
     batched mode (the lazily-built assembly tables are fingerprinted and
     invalidated on conf change — advisor r3), matching per-link mode."""
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
-    from fdreadoutlibs_tpu.utils.channel_map import make_map
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.utils.channel_map import make_map
 
     def run(batched):
         app = APAReadoutApp(n_links=2, threshold=200, algorithm="AbsRS",
@@ -217,7 +219,7 @@ def test_batched_assembly_rejects_heterogeneous_conf(interpret_ingest):
     """Batched assembly applies ONE tp_max_width/tp_algo to all links; a
     heterogeneous conf must fail loudly, not silently use procs[0]'s."""
     import pytest
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
     app = APAReadoutApp(n_links=2, threshold=200, algorithm="AbsRS",
                         batched_assembly=True)
     app.procs[1].tp_max_width = app.procs[0].tp_max_width + 1
@@ -237,7 +239,7 @@ def test_batched_preprocess_error_parity(interpret_ingest):
     """The all-links vectorized header validation falls back to the exact
     per-link checks for anomalous links: error metrics and carried
     prev-seq/ts match the pure per-link path."""
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
 
     def run(batched):
         app = APAReadoutApp(n_links=3, threshold=499,
@@ -282,7 +284,7 @@ def test_raw_capacity_must_fit_batches(interpret_ingest):
     frames of every batch (cleanup trims to capacity/2 after insert);
     process_batch rejects it instead."""
     import pytest
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
     app = APAReadoutApp(n_links=1, threshold=499, raw_capacity_frames=8)
     frames = np.zeros((1, 8, wibeth.FRAME_SIZE), np.uint8)
     wibeth.fake_timestamps(frames[0], 100_000)
@@ -296,7 +298,7 @@ def test_batch_timings_and_latency_info(interpret_ingest):
     latency_info derives the documented spec quantities: batch span from
     the DTS tick pitch and min_latency_ticks = 2x margin on the p95
     arrival->TP-available latency (README 'TP-emission latency')."""
-    from fdreadoutlibs_tpu.apps.apa_readout import APAReadoutApp
+    from fdreadoutlibs_jax.apps.apa_readout import APAReadoutApp
     app = APAReadoutApp(n_links=1, threshold=499)
     assert app.latency_info() == {}          # nothing recorded yet
     ts = 100_000
@@ -329,8 +331,8 @@ def test_batch_timings_and_latency_info(interpret_ingest):
 def test_pds_pipelined_matches_unpipelined(interpret_ingest):
     """PDS depth-2 pipelining: identical TP stream and counters as the
     synchronous path once flushed (same contract as the APA app)."""
-    from fdreadoutlibs_tpu.apps.pds_readout import PDSReadoutApp
-    from fdreadoutlibs_tpu.formats import daphne
+    from fdreadoutlibs_jax.apps.pds_readout import PDSReadoutApp
+    from fdreadoutlibs_jax.formats import daphne
 
     def run(pipelined):
         app = PDSReadoutApp(n_links=2, threshold=150,
@@ -372,8 +374,8 @@ def test_pds_pipelined_matches_unpipelined(interpret_ingest):
 def test_pds_readout_end_to_end(interpret_ingest):
     """PDS (DAPHNE-stream) composition: fused multi-link ingest, PDS TP
     assembly (1 clock/tick), TPSet windowing, raw data requests."""
-    from fdreadoutlibs_tpu.apps.pds_readout import PDSReadoutApp
-    from fdreadoutlibs_tpu.formats import daphne
+    from fdreadoutlibs_jax.apps.pds_readout import PDSReadoutApp
+    from fdreadoutlibs_jax.formats import daphne
     app = PDSReadoutApp(n_links=2, threshold=400, raw_capacity_superchunks=16)
     ts = 0x2000000
     T = daphne.STREAM_FRAMES_PER_SUPERCHUNK * daphne.STREAM_N_SAMPLES
@@ -413,8 +415,8 @@ def test_pds_corrupt_header_ts_no_overflow(interpret_ingest):
     set (the corruption scripts/fuzz_frames.py injects) must degrade, not
     raise OverflowError — same uint64-ts class as the processors'
     ts_to_i64 fix (commit b924655)."""
-    from fdreadoutlibs_tpu.apps.pds_readout import PDSReadoutApp
-    from fdreadoutlibs_tpu.formats import daphne
+    from fdreadoutlibs_jax.apps.pds_readout import PDSReadoutApp
+    from fdreadoutlibs_jax.formats import daphne
     app = PDSReadoutApp(n_links=1, threshold=400, raw_capacity_superchunks=16)
     scs = daphne.empty_superchunks(1, stream=True)[None]      # (1, 1, 5664)
     frames = daphne.superchunk_frames(scs[0], stream=True)

@@ -11,7 +11,7 @@ output exactly on random frames.
 
 import numpy as np
 
-from fdreadoutlibs_tpu.formats import protowib, wib2, wibeth
+from fdreadoutlibs_jax.formats import protowib, wib2, wibeth
 
 
 def simulate_unpack_one_register(words8: np.ndarray) -> np.ndarray:

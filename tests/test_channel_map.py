@@ -8,7 +8,7 @@ the documented electronics geometry (utils/channel_map.HDAPAChannelMap).
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.utils.channel_map import (
+from fdreadoutlibs_jax.utils.channel_map import (
     HDAPAChannelMap, TableChannelMap, make_map, register_map_via_expansion)
 
 
@@ -88,9 +88,9 @@ class TestHDAPAChannelMap:
         """End-to-end: the WIB2 processor configured with the HD APA map
         (frontend='wib2') assigns production memory factors from the real
         plane split and emits TPs with real offline channel numbers."""
-        from fdreadoutlibs_tpu.formats import wib2
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
-        from fdreadoutlibs_tpu.stream.wib2 import WIB2FrameProcessor
+        from fdreadoutlibs_jax.formats import wib2
+        from fdreadoutlibs_jax.stream.transport import QueueSender
+        from fdreadoutlibs_jax.stream.wib2 import WIB2FrameProcessor
 
         sink = QueueSender()
         p = WIB2FrameProcessor(tp_sink=sink)
@@ -190,8 +190,8 @@ class TestGuards:
         """Per-channel memory factors outside {0, 1<<shift} are rejected
         loudly instead of silently computing wrong RS values."""
         import pytest
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.ops.reference import run_reference
+        from fdreadoutlibs_jax.ops import TPGConfig
+        from fdreadoutlibs_jax.ops.reference import run_reference
         cfg = TPGConfig.from_raw("AbsRS", threshold=150)  # rs_mf_shift=3
         adcs = np.full((8, 4), 900, np.int32)
         with pytest.raises(ValueError, match="rs_mf_shift"):
@@ -203,8 +203,8 @@ class TestGuards:
         run_reference(adcs, gen, rs_memory_factor=np.array([0, 8, 6, 8]))
 
     def test_wib2_fir_drops_peak_tracking_daphne_keeps_it(self):
-        from fdreadoutlibs_tpu.stream.wib2 import WIB2FrameProcessor
-        from fdreadoutlibs_tpu.stream.daphne import DAPHNEStreamFrameProcessor
+        from fdreadoutlibs_jax.stream.wib2 import WIB2FrameProcessor
+        from fdreadoutlibs_jax.stream.daphne import DAPHNEStreamFrameProcessor
         w = WIB2FrameProcessor()
         w.conf({"enable_tpg": True, "tpg_algorithm": "FIR",
                 "tpg_threshold": 5})
@@ -216,7 +216,7 @@ class TestGuards:
 
 class TestCLI:
     def test_channel_map_dump(self, capsys):
-        from fdreadoutlibs_tpu.cli import main as cli_main
+        from fdreadoutlibs_jax.cli import main as cli_main
         assert cli_main(["channel-map", "--slot", "1", "--stream", "3",
                          "--json", "--channels", "8"]) == 0
         import json
@@ -230,9 +230,9 @@ class TestProcessorIntegration:
         """The WIBEth processor zeroes RS memory factors exactly on the
         collection-plane channels of its stream (WIBEthFrameProcessor.cpp:
         441-450) with the HD map."""
-        from fdreadoutlibs_tpu.formats import wibeth
-        from fdreadoutlibs_tpu.stream import WIBEthFrameProcessor
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
+        from fdreadoutlibs_jax.formats import wibeth
+        from fdreadoutlibs_jax.stream import WIBEthFrameProcessor
+        from fdreadoutlibs_jax.stream.transport import QueueSender
 
         p = WIBEthFrameProcessor(tp_sink=QueueSender())
         p.conf({"crate_id": 0, "slot_id": 1, "link_id": 2,
@@ -259,7 +259,7 @@ class TestProcessorIntegration:
 
 class TestVDTDEChannelMap:
     def test_crp_coverage_bijective(self):
-        from fdreadoutlibs_tpu.utils.channel_map import VDTDEChannelMap
+        from fdreadoutlibs_jax.utils.channel_map import VDTDEChannelMap
         m = VDTDEChannelMap()
         seen = set()
         for crate in range(4):
@@ -272,7 +272,7 @@ class TestVDTDEChannelMap:
             4, 0, 0, 0) == 3072
 
     def test_plane_split_sizes(self):
-        from fdreadoutlibs_tpu.utils.channel_map import VDTDEChannelMap
+        from fdreadoutlibs_jax.utils.channel_map import VDTDEChannelMap
         m = VDTDEChannelMap()
         planes = m.planes(np.arange(3072))
         assert int(np.sum(planes == 1)) == 952     # induction-1
@@ -280,7 +280,7 @@ class TestVDTDEChannelMap:
         assert int(np.sum(planes == 0)) == 1168    # collection
 
     def test_permutation_injection_and_validation(self):
-        from fdreadoutlibs_tpu.utils.channel_map import VDTDEChannelMap
+        from fdreadoutlibs_jax.utils.channel_map import VDTDEChannelMap
         perm = np.arange(3072)[::-1]
         m = VDTDEChannelMap(permutation=perm)
         assert m.get_offline_channel_from_crate_slot_stream_chan(
@@ -291,7 +291,7 @@ class TestVDTDEChannelMap:
             VDTDEChannelMap(n_slots=10)
 
     def test_registry(self):
-        from fdreadoutlibs_tpu.utils.channel_map import (VDTDEChannelMap,
+        from fdreadoutlibs_jax.utils.channel_map import (VDTDEChannelMap,
                                                          make_map)
         assert isinstance(make_map("VDTopChannelMap"), VDTDEChannelMap)
 
@@ -299,7 +299,7 @@ class TestVDTDEChannelMap:
         """The vectorized accessor (the TDEFrameProcessor path) enforces
         the same slot/crate ranges as the scalar one — an out-of-range
         slot must not silently alias into another AMC's channels."""
-        from fdreadoutlibs_tpu.utils.channel_map import VDTDEChannelMap
+        from fdreadoutlibs_jax.utils.channel_map import VDTDEChannelMap
         m = VDTDEChannelMap()
         with pytest.raises(ValueError, match="slot"):
             m.offline_channels(0, 12, 0)            # n_slots == 12
@@ -332,7 +332,7 @@ class TestFidelityHarness:
                                 f"{chan} {plane}\n")
 
     def test_cross_check_confirms_matching_dump(self, tmp_path):
-        from fdreadoutlibs_tpu.utils.channel_map import (TableChannelMap,
+        from fdreadoutlibs_jax.utils.channel_map import (TableChannelMap,
                                                          cross_check_maps)
         geo = HDAPAChannelMap()
         p = tmp_path / "dump.txt"
@@ -344,7 +344,7 @@ class TestFidelityHarness:
         assert rep["n_offline_mismatch"] == 0
 
     def test_cross_check_pins_exact_divergence(self, tmp_path):
-        from fdreadoutlibs_tpu.utils.channel_map import (TableChannelMap,
+        from fdreadoutlibs_jax.utils.channel_map import (TableChannelMap,
                                                          cross_check_maps)
         geo = HDAPAChannelMap()
         p = tmp_path / "dump.txt"
@@ -363,7 +363,7 @@ class TestFidelityHarness:
     def test_femb_table_derivation_roundtrip(self, tmp_path):
         """A dump that fits the per-FEMB parametrization derives a
         femb_table that reproduces it exactly."""
-        from fdreadoutlibs_tpu.utils.channel_map import (cross_check_maps,
+        from fdreadoutlibs_jax.utils.channel_map import (cross_check_maps,
                                                          femb_table_from_dump)
         # a non-default but FEMB-uniform table: interleave the planes
         plane = np.concatenate([np.full(40, 1), np.full(40, 2),
@@ -382,7 +382,7 @@ class TestFidelityHarness:
         assert rep["match"]
 
     def test_femb_table_derivation_rejects_nonuniform(self, tmp_path):
-        from fdreadoutlibs_tpu.utils.channel_map import femb_table_from_dump
+        from fdreadoutlibs_jax.utils.channel_map import femb_table_from_dump
         geo = HDAPAChannelMap()
         p = tmp_path / "dump.txt"
         # swap across FEMBs so no single femb_table can fit
@@ -396,10 +396,10 @@ class TestFidelityHarness:
 class TestTDEOfflineChannels:
     def test_tde_processor_resolves_offline_channels(self):
         """TDE TPs carry VD offline channels when a map is configured."""
-        from fdreadoutlibs_tpu.formats import tde
-        from fdreadoutlibs_tpu.stream.tde import TDEFrameProcessor
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
-        from fdreadoutlibs_tpu.utils.channel_map import VDTDEChannelMap
+        from fdreadoutlibs_jax.formats import tde
+        from fdreadoutlibs_jax.stream.tde import TDEFrameProcessor
+        from fdreadoutlibs_jax.stream.transport import QueueSender
+        from fdreadoutlibs_jax.utils.channel_map import VDTDEChannelMap
 
         sink = QueueSender()
         p = TDEFrameProcessor(tp_sink=sink)
@@ -424,7 +424,7 @@ class TestTDEOfflineChannels:
 class TestValidateMapCLI:
     def test_validate_map_roundtrip(self, tmp_path, capsys):
         import json as _json
-        from fdreadoutlibs_tpu.cli import main as cli_main
+        from fdreadoutlibs_jax.cli import main as cli_main
         geo = HDAPAChannelMap()
         p = tmp_path / "dump.txt"
         TestFidelityHarness._write_dump(TestFidelityHarness(), p, geo)
@@ -438,7 +438,7 @@ class TestValidateMapCLI:
 
     def test_validate_map_divergence_exit_code(self, tmp_path, capsys):
         import json as _json
-        from fdreadoutlibs_tpu.cli import main as cli_main
+        from fdreadoutlibs_jax.cli import main as cli_main
         geo = HDAPAChannelMap()
         a = int(geo.offline_channels(0, 2, 3, 64)[10])
         b = int(geo.offline_channels(0, 2, 3, 64)[11])
@@ -457,7 +457,7 @@ class TestValidateMapCLI:
         derivation also failed into exit code 0 (scripts gating on the
         exit code would treat the map as validated)."""
         import json as _json
-        from fdreadoutlibs_tpu.cli import main as cli_main
+        from fdreadoutlibs_jax.cli import main as cli_main
         geo = HDAPAChannelMap()
         a = int(geo.offline_channels(0, 2, 3, 64)[10])
         b = int(geo.offline_channels(0, 2, 3, 64)[11])
@@ -474,7 +474,7 @@ class TestValidateMapCLI:
         assert rc == 1
 
     def test_frontend_geometry_single_source(self):
-        from fdreadoutlibs_tpu.utils.channel_map import frontend_geometry
+        from fdreadoutlibs_jax.utils.channel_map import frontend_geometry
         assert frontend_geometry("wibeth") == (8, 64)
         assert frontend_geometry("wib2") == (2, 256)
         with pytest.raises(ValueError, match="frontend"):
@@ -488,7 +488,7 @@ class TestPackagedDumpDefault:
     value-by-value."""
 
     def test_default_loads_packaged_dump(self):
-        from fdreadoutlibs_tpu.utils.channel_map import (
+        from fdreadoutlibs_jax.utils.channel_map import (
             PACKAGED_DUMP, femb_table_from_dump, packaged_femb_table)
         import os
         assert os.path.exists(PACKAGED_DUMP)
@@ -505,7 +505,7 @@ class TestPackagedDumpDefault:
         APA equals the checked-in dump, read back independently through
         TableChannelMap (2560 channels, both frontends' consumers resolve
         through the same femb_table)."""
-        from fdreadoutlibs_tpu.utils.channel_map import (
+        from fdreadoutlibs_jax.utils.channel_map import (
             PACKAGED_DUMP, TableChannelMap, cross_check_maps)
         file_map = TableChannelMap.from_file(PACKAGED_DUMP)
         default_map = HDAPAChannelMap()
@@ -538,7 +538,7 @@ class TestPackagedDumpDefault:
         you replaced data/PD2HD_APA_wibeth.txt with a real detchannelmaps
         dump and this test fails, that is expected — delete this test and
         update PARITY.md; every other consumer follows the file."""
-        from fdreadoutlibs_tpu.utils.channel_map import (
+        from fdreadoutlibs_jax.utils.channel_map import (
             PACKAGED_DUMP, TableChannelMap, cross_check_maps)
         geo = HDAPAChannelMap(femb_table="geometry")
         file_map = TableChannelMap.from_file(PACKAGED_DUMP)
@@ -554,8 +554,8 @@ class TestPackagedDumpDefault:
 
     def test_validate_map_cli_accepts_packaged_dump(self, capsys):
         import json as _json
-        from fdreadoutlibs_tpu.cli import main as cli_main
-        from fdreadoutlibs_tpu.utils.channel_map import PACKAGED_DUMP
+        from fdreadoutlibs_jax.cli import main as cli_main
+        from fdreadoutlibs_jax.utils.channel_map import PACKAGED_DUMP
         rc = cli_main(["validate-map", "-f", PACKAGED_DUMP,
                        "--derive-femb-table"])
         out = _json.loads(capsys.readouterr().out.strip())
@@ -563,8 +563,8 @@ class TestPackagedDumpDefault:
 
     def test_write_dump_cli_roundtrip(self, tmp_path, capsys):
         import json as _json
-        from fdreadoutlibs_tpu.cli import main as cli_main
-        from fdreadoutlibs_tpu.utils.channel_map import (
+        from fdreadoutlibs_jax.cli import main as cli_main
+        from fdreadoutlibs_jax.utils.channel_map import (
             PACKAGED_DUMP, femb_table_from_dump)
         p = tmp_path / "regen.txt"
         rc = cli_main(["channel-map", "--write-dump", str(p)])

@@ -12,11 +12,11 @@ records and building adc_integral / adc_peak from the unsigned value
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats.trigprim import TP_DTYPE  # noqa: F401
-from fdreadoutlibs_tpu.ops import TPGConfig
-from fdreadoutlibs_tpu.ops.hits import HIT_DTYPE
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.stream.transport import QueueSender
+from fdreadoutlibs_jax.formats.trigprim import TP_DTYPE  # noqa: F401
+from fdreadoutlibs_jax.ops import TPGConfig
+from fdreadoutlibs_jax.ops.hits import HIT_DTYPE
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.stream.transport import QueueSender
 
 
 def deep_negative_stream(T=64):
@@ -43,9 +43,9 @@ class TestChargeFloor:
 
     def test_backends_agree_on_saturated_charge(self):
         import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
+        from fdreadoutlibs_jax.ops.chanstate import (init_chanstate,
                                                      seed_chanstate)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (decode_pallas_hits,
+        from fdreadoutlibs_jax.ops.pallas_tpg import (decode_pallas_hits,
                                                       pack_adcs, pack_state,
                                                       process_window_pallas)
         cfg = TPGConfig.from_raw("AbsRS", threshold=150)
@@ -63,7 +63,7 @@ class TestChargeFloor:
     def test_fir_charge_floor(self):
         """The FIR accumulate applies the same floor (filt can be negative
         while over under the wrapped AVX threshold product)."""
-        from fdreadoutlibs_tpu.ops.fixedpoint import I32Fx
+        from fdreadoutlibs_jax.ops.fixedpoint import I32Fx
         import jax.numpy as jnp  # noqa: F401
         fx = I32Fx.make(np)
         assert fx.add_clamp(np.int32(-30000), np.int32(-10000),
@@ -74,7 +74,7 @@ class TestChargeFloor:
     def test_add_clamp_matches_adds_epi16_property(self):
         """Property: add_clamp(floor=-32768) == _mm256_adds_epi16 for all
         int16 operand pairs (random sample over the full domain)."""
-        from fdreadoutlibs_tpu.ops.fixedpoint import I32Fx
+        from fdreadoutlibs_jax.ops.fixedpoint import I32Fx
         rng = np.random.default_rng(0)
         a = rng.integers(-32768, 32768, 10000).astype(np.int64)
         b = rng.integers(-32768, 32768, 10000).astype(np.int64)
@@ -97,7 +97,7 @@ def _mk_hits(charges, tover=4):
 
 class TestTPDecodeTypes:
     def _wibeth(self):
-        from fdreadoutlibs_tpu.stream import WIBEthFrameProcessor
+        from fdreadoutlibs_jax.stream import WIBEthFrameProcessor
         q = QueueSender()
         p = WIBEthFrameProcessor(tp_sink=q)
         p.conf({"enable_tpg": True, "tpg_algorithm": "AbsRS",
@@ -124,7 +124,7 @@ class TestTPDecodeTypes:
         assert p.metrics.count("num_tps_sent") == 1
 
     def test_wib2_unsigned_peak_division(self):
-        from fdreadoutlibs_tpu.stream.wib2 import WIB2FrameProcessor
+        from fdreadoutlibs_jax.stream.wib2 import WIB2FrameProcessor
         q = QueueSender()
         p = WIB2FrameProcessor(tp_sink=q)
         p.conf({"enable_tpg": True, "tpg_algorithm": "AbsRS",

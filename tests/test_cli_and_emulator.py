@@ -6,16 +6,16 @@ import json
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.cli import main as cli_main
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.formats.adapters import get_adapter
-from fdreadoutlibs_tpu.models import MODEL_FAMILIES, get_model, run_model
-from fdreadoutlibs_tpu.ops import TPGConfig
-from fdreadoutlibs_tpu.stream.emulator import (FileSourceBuffer, RateLimiter,
+from fdreadoutlibs_jax.cli import main as cli_main
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.formats.adapters import get_adapter
+from fdreadoutlibs_jax.models import MODEL_FAMILIES, get_model, run_model
+from fdreadoutlibs_jax.ops import TPGConfig
+from fdreadoutlibs_jax.stream.emulator import (FileSourceBuffer, RateLimiter,
                                                SourceEmulator,
                                                all_zeros_wibeth_file,
                                                pattern_file)
-from fdreadoutlibs_tpu.stream.transport import QueueSender
+from fdreadoutlibs_jax.stream.transport import QueueSender
 
 
 class TestModels:
@@ -33,7 +33,7 @@ class TestModels:
         cfg = TPGConfig(threshold=200)
         h_ref, _ = run_model(adcs, cfg, backend="reference")
         h_scan, _ = run_model(adcs, cfg, backend="scan")
-        h_pal, _ = run_model(adcs, cfg, backend="pallas")
+        h_pal, _ = run_model(adcs, cfg, backend="pallas", interpret=True)
         assert len(h_ref) >= 1
         np.testing.assert_array_equal(h_scan, h_ref)
         np.testing.assert_array_equal(h_pal, h_ref)

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.ops import patterns
-from fdreadoutlibs_tpu.stream import WIBEthFrameProcessor
-from fdreadoutlibs_tpu.stream.transport import QueueSender
-from fdreadoutlibs_tpu.utils.checkpoint import (checkpoint_processor,
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.ops import patterns
+from fdreadoutlibs_jax.stream import WIBEthFrameProcessor
+from fdreadoutlibs_jax.stream.transport import QueueSender
+from fdreadoutlibs_jax.utils.checkpoint import (checkpoint_processor,
                                                 restore_processor)
-from fdreadoutlibs_tpu.utils.config import (RawDataProcessorConf,
+from fdreadoutlibs_jax.utils.config import (RawDataProcessorConf,
                                             ReadoutModelConf, load_config)
 
 
@@ -90,9 +90,9 @@ class TestShardedCheckpoint:
     def test_apa_state_roundtrip(self, tmp_path):
         """Sharded multi-chip state checkpoints and resumes bit-exactly."""
         import numpy as np
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.parallel import APAPipeline, make_link_mesh
-        from fdreadoutlibs_tpu.utils.checkpoint import (load_sharded_state,
+        from fdreadoutlibs_jax.ops import TPGConfig
+        from fdreadoutlibs_jax.parallel import APAPipeline, make_link_mesh
+        from fdreadoutlibs_jax.utils.checkpoint import (load_sharded_state,
                                                         save_sharded_state)
         from tests.test_parallel import make_words
 
@@ -120,10 +120,10 @@ class TestShardedCheckpoint:
         and resumes bit-exactly on a fresh pipeline (each device writes its
         shard; restore re-shards onto the current mesh)."""
         import numpy as np
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.parallel import (DetectorPipeline,
+        from fdreadoutlibs_jax.ops import TPGConfig
+        from fdreadoutlibs_jax.parallel import (DetectorPipeline,
                                                 make_apa_link_mesh)
-        from fdreadoutlibs_tpu.utils.checkpoint import (load_sharded_state,
+        from fdreadoutlibs_jax.utils.checkpoint import (load_sharded_state,
                                                         save_sharded_state)
         from tests.test_detector_pipeline import make_apa_words
 
@@ -148,8 +148,8 @@ class TestDAPHNEPallasCheckpoint:
         """A pallas-backend DAPHNE-stream processor checkpointed
         mid-stream resumes bit-exactly (the restored state must be packed
         into the device stack, not silently re-seeded)."""
-        from fdreadoutlibs_tpu.formats import daphne
-        from fdreadoutlibs_tpu.stream.daphne import DAPHNEStreamFrameProcessor
+        from fdreadoutlibs_jax.formats import daphne
+        from fdreadoutlibs_jax.stream.daphne import DAPHNEStreamFrameProcessor
 
         rng = np.random.default_rng(3)
 
@@ -165,7 +165,7 @@ class TestDAPHNEPallasCheckpoint:
             return sc
 
         def make():
-            from fdreadoutlibs_tpu.stream.transport import QueueSender
+            from fdreadoutlibs_jax.stream.transport import QueueSender
             p = DAPHNEStreamFrameProcessor(tp_sink=QueueSender())
             p.conf({"enable_tpg": True, "tpg_threshold": 60,
                     "tpg_backend": "pallas", "tpg_pallas_interpret": True})

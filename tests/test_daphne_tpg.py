@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.formats import daphne, wib2
-from fdreadoutlibs_tpu.formats.trigprim import TPType
-from fdreadoutlibs_tpu.stream.daphne import (DAPHNEFrameProcessor,
+from fdreadoutlibs_jax.formats import daphne, wib2
+from fdreadoutlibs_jax.formats.trigprim import TPType
+from fdreadoutlibs_jax.stream.daphne import (DAPHNEFrameProcessor,
                                              DAPHNEStreamFrameProcessor)
-from fdreadoutlibs_tpu.stream.transport import QueueSender
-from fdreadoutlibs_tpu.utils.channel_map import (IdentityChannelMap,
+from fdreadoutlibs_jax.stream.transport import QueueSender
+from fdreadoutlibs_jax.utils.channel_map import (IdentityChannelMap,
                                                  register_map_via_expansion)
 
 
@@ -162,7 +162,7 @@ class TestDaphneFusedIngest:
         """current_state() unpacks the device stack once per batch, not
         once per call — repeated checkpoints without an intervening batch
         must not re-pay the device->host sync (round-3 review)."""
-        import fdreadoutlibs_tpu.ops.pallas_tpg as pt
+        import fdreadoutlibs_jax.ops.pallas_tpg as pt
         sc = daphne.empty_superchunks(1, stream=True)
         frames = daphne.superchunk_frames(sc, stream=True) \
             .reshape(-1, daphne.STREAM_FRAME_SIZE)
@@ -194,12 +194,12 @@ class TestDaphneFusedIngest:
     def test_streaming_ingest_daphne_format(self):
         """StreamingIngest(format='daphne_stream') over 2 links matches the
         reference oracle on the stacked channel set."""
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
+        from fdreadoutlibs_jax.ops import TPGConfig
+        from fdreadoutlibs_jax.ops.chanstate import (init_chanstate,
                                                      seed_chanstate)
-        from fdreadoutlibs_tpu.ops.ingest import StreamingIngest
-        from fdreadoutlibs_tpu.ops.reference import process_window_reference
-        from fdreadoutlibs_tpu.ops.hits import sort_hits
+        from fdreadoutlibs_jax.ops.ingest import StreamingIngest
+        from fdreadoutlibs_jax.ops.reference import process_window_reference
+        from fdreadoutlibs_jax.ops.hits import sort_hits
         rng = np.random.default_rng(11)
         cfg = TPGConfig(threshold=120)
         L, NB, NF = 2, 3, 4           # links, batches, frames/batch

@@ -8,10 +8,10 @@ contiguous link-axis device group and the monitoring psum stays on the
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.ops import TPGConfig
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.parallel import (APAPipeline, DetectorPipeline,
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.ops import TPGConfig
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.parallel import (APAPipeline, DetectorPipeline,
                                         make_apa_link_mesh, make_link_mesh)
 
 

@@ -4,7 +4,7 @@ request/fragment layer (apps/detector_readout.py)."""
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import daphne, tde, wibeth
+from fdreadoutlibs_jax.formats import daphne, tde, wibeth
 
 
 def _tpc_batch(b, n_links=2, n_frames=1, pulse_link=None, ts=0x100000):
@@ -50,7 +50,7 @@ def _tde_batch(pulse=False, ts=0x300000):
 
 @pytest.fixture(params=[False, True], ids=["sync", "pipelined"])
 def det_app(request, interpret_ingest):
-    from fdreadoutlibs_tpu.apps.detector_readout import DetectorReadoutApp
+    from fdreadoutlibs_jax.apps.detector_readout import DetectorReadoutApp
     return DetectorReadoutApp(apa_links=2, pds_links=1, tde_links=1,
                               tpc_threshold=499, pds_threshold=120,
                               tde_threshold=600, tde_backend="reference",
@@ -58,7 +58,7 @@ def det_app(request, interpret_ingest):
 
 
 def test_three_arms_end_to_end(det_app, tmp_path):
-    from fdreadoutlibs_tpu.apps.detector_readout import (
+    from fdreadoutlibs_jax.apps.detector_readout import (
         PDS_SOURCE_BASE, TDE_SOURCE_BASE, TPC_SOURCE_BASE)
     ts_tpc, ts_pds, ts_tde = 0x100000, 0x200000, 0x300000
     for b in range(3):
@@ -99,7 +99,7 @@ def test_three_arms_end_to_end(det_app, tmp_path):
     assert len(raw_tde) >= 1
 
     # one recorder serves fragments from every arm
-    from fdreadoutlibs_tpu.tp.recorder import FragmentRecorder
+    from fdreadoutlibs_jax.tp.recorder import FragmentRecorder
     rec = FragmentRecorder(tmp_path, run_number=1)
     for i, (sid, t0) in enumerate(((TPC_SOURCE_BASE + 1, 0x100000),
                                    (PDS_SOURCE_BASE, 0x200000),

@@ -5,7 +5,7 @@ DAPHNEStreamSuperChunkTypeAdapter_test.cxx size/timestamp tests)."""
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import (adapters, daphne, protowib, ssp, tde,
+from fdreadoutlibs_jax.formats import (adapters, daphne, protowib, ssp, tde,
                                        wib2)
 
 
@@ -232,7 +232,7 @@ class TestAdapterRegistry:
     def test_timestamp_roundtrip(self, name):
         ad = adapters.get_adapter(name)
         if name == "trigger_primitive":
-            from fdreadoutlibs_tpu.formats.trigprim import make_tps
+            from fdreadoutlibs_jax.formats.trigprim import make_tps
             payload = make_tps(2)
         else:
             payload = ad.empty(2)

@@ -11,11 +11,11 @@ to the whole-run oracle.  Seeds are fixed per case so failures reproduce.
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.ops import Algorithm, TPGConfig
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.hits import concat_hits, decode_dense
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.ops.scan import process_window_scan, state_to_jnp
+from fdreadoutlibs_jax.ops import Algorithm, TPGConfig
+from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
+from fdreadoutlibs_jax.ops.hits import concat_hits, decode_dense
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.ops.scan import process_window_scan, state_to_jnp
 
 T, C = 192, 40
 
@@ -68,29 +68,27 @@ def test_random_config_uneven_batches(seed):
 def test_random_config_pallas_interpret(seed):
     """One fuzz case also through the Pallas kernel (interpret mode,
     uneven 2-window split) — the same randomized config space reaches
-    the third backend.  FIR draws additionally run the two-pass
-    schedules on the same uneven split."""
+    the third backend, at every channel-block width."""
     import jax.numpy as jnp
 
-    from fdreadoutlibs_tpu.ops.pallas_tpg import (decode_pallas_hits,
+    from fdreadoutlibs_jax.ops.pallas_tpg import (decode_pallas_hits,
                                                   pack_adcs, pack_state,
                                                   process_window_pallas)
     cfg, rmf, adcs, bounds = _case(seed)
     h_ref, st_ref = run_reference(adcs, cfg, rs_memory_factor=rmf)
     packed = pack_adcs(adcs)
-    schedules = (0, 1, 2) if cfg.algorithm == Algorithm.FIR else (0,)
     cut = bounds[len(bounds) // 2]              # one uneven split
-    for tp in schedules:
+    for sub in (1, 8):
         stack = pack_state(seed_chanstate(init_chanstate(C), adcs[0], rmf),
-                           C)
+                           C, block_sublanes=sub)
         parts, dropped = [], 0
         for a, b in ((0, cut), (cut, T)):
             slots, nclose, stack = process_window_pallas(
                 jnp.asarray(packed[a:b]), stack, cfg, tc=b - a, k_slots=32,
-                interpret=True, fir_twopass=tp)
+                interpret=True)
             h, d = decode_pallas_hits(slots, nclose, C, tick_offset=a)
             parts.append(h)
             dropped += d
         assert dropped == 0
         np.testing.assert_array_equal(concat_hits(parts), h_ref,
-                                      err_msg=f"fir_twopass={tp}")
+                                      err_msg=f"block_sublanes={sub}")

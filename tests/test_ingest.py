@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.ops import TPGConfig
-from fdreadoutlibs_tpu.ops.hits import concat_hits
-from fdreadoutlibs_tpu.ops.ingest import StreamingIngest, host_words
-from fdreadoutlibs_tpu.ops.reference import run_reference
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.ops import TPGConfig
+from fdreadoutlibs_jax.ops.hits import concat_hits
+from fdreadoutlibs_jax.ops.ingest import StreamingIngest, host_words
+from fdreadoutlibs_jax.ops.reference import run_reference
 
 
 def make_frames(L, N, seed=0, pulse=None):
@@ -102,11 +102,11 @@ class TestStreamingIngest:
 class TestWIB2Ingest:
     def test_fused_wib2_matches_oracle(self):
         import jax.numpy as jnp
-        from fdreadoutlibs_tpu.formats import wib2
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
+        from fdreadoutlibs_jax.formats import wib2
+        from fdreadoutlibs_jax.ops.chanstate import (init_chanstate,
                                                      seed_chanstate)
-        from fdreadoutlibs_tpu.ops.ingest import process_packed_wib2
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (decode_pallas_hits,
+        from fdreadoutlibs_jax.ops.ingest import process_packed_wib2
+        from fdreadoutlibs_jax.ops.pallas_tpg import (decode_pallas_hits,
                                                       pack_state)
         rng = np.random.default_rng(1)
         L, T = 2, 48
@@ -132,7 +132,7 @@ class TestWIB2Ingest:
 def test_streaming_ingest_wib2_format():
     """StreamingIngest with format='wib2': 256-channel frames, 1 tick each."""
     import jax.numpy as jnp
-    from fdreadoutlibs_tpu.formats import wib2
+    from fdreadoutlibs_jax.formats import wib2
     rng = np.random.default_rng(9)
     L, N = 2, 48          # 48 one-tick frames per link
     adcs = (800 + rng.normal(0, 20, size=(L, N, 256))).astype(np.uint16)
@@ -155,7 +155,7 @@ def test_streaming_ingest_device_compact_matches_host_decode():
     """device_compact=True (K-slot buffers compacted to a hit list ON
     device, ~40x smaller device->host transfer) yields exactly the host
     decode's hits — across multiple batches with carried tick offsets."""
-    from fdreadoutlibs_tpu.formats import wibeth as _w
+    from fdreadoutlibs_jax.formats import wibeth as _w
     rng = np.random.default_rng(17)
     L, N = 2, 2
     cfg = TPGConfig(threshold=120)
@@ -188,7 +188,7 @@ def test_streaming_ingest_device_compact_matches_host_decode():
 
 def test_device_compact_counts_output_overflow_as_dropped():
     import jax.numpy as jnp
-    from fdreadoutlibs_tpu.ops.hits import compact_pallas_slots
+    from fdreadoutlibs_jax.ops.hits import compact_pallas_slots
     # 3 valid records, room for 2
     slots = np.zeros((1, 1, 4, 3, 8, 128), np.int32)
     nclose = np.zeros((1, 1, 8, 128), np.int32)
@@ -202,7 +202,7 @@ def test_device_compact_counts_output_overflow_as_dropped():
 
 def test_pack_time2_jnp_matches_host():
     import jax.numpy as jnp
-    from fdreadoutlibs_tpu.ops.pallas_tpg import (pack_adcs, pack_adcs_time2,
+    from fdreadoutlibs_jax.ops.pallas_tpg import (pack_adcs, pack_adcs_time2,
                                                   pack_time2_jnp)
     rng = np.random.default_rng(2)
     adcs = rng.integers(0, 1 << 14, size=(64, 200), dtype=np.int32)
@@ -215,18 +215,18 @@ def test_fused_ingest_fuzz_all_formats():
     """Random streams through every fused-ingest codec path match the
     numpy oracle (interpret mode, one seed per format)."""
     import jax.numpy as jnp
-    from fdreadoutlibs_tpu.formats import daphne, protowib, wib2
-    from fdreadoutlibs_tpu.ops import TPGConfig, Algorithm
-    from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-    from fdreadoutlibs_tpu.ops.hits import sort_hits
-    from fdreadoutlibs_tpu.ops.ingest import (process_packed_daphne,
+    from fdreadoutlibs_jax.formats import daphne, protowib, wib2
+    from fdreadoutlibs_jax.ops import TPGConfig, Algorithm
+    from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
+    from fdreadoutlibs_jax.ops.hits import sort_hits
+    from fdreadoutlibs_jax.ops.ingest import (process_packed_daphne,
                                               process_packed_frames,
                                               process_packed_protowib,
                                               process_packed_wib2,
                                               host_words)
-    from fdreadoutlibs_tpu.ops.pallas_tpg import (decode_pallas_hits,
+    from fdreadoutlibs_jax.ops.pallas_tpg import (decode_pallas_hits,
                                                   pack_state)
-    from fdreadoutlibs_tpu.ops.reference import process_window_reference
+    from fdreadoutlibs_jax.ops.reference import process_window_reference
     rng = np.random.default_rng(31)
     cfg = TPGConfig(algorithm=Algorithm.ABS_RS, threshold=300)
 
@@ -302,11 +302,11 @@ def test_bench_ingest_encoding_roundtrip():
     byte words link-major; the fused ingest must yield hits identical to
     the direct packed-ADC path (pins the bench's to_words layout)."""
     import jax.numpy as jnp
-    from fdreadoutlibs_tpu.formats import wibeth
-    from fdreadoutlibs_tpu.ops import TPGConfig
-    from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-    from fdreadoutlibs_tpu.ops.ingest import process_packed_frames
-    from fdreadoutlibs_tpu.ops.pallas_tpg import (
+    from fdreadoutlibs_jax.formats import wibeth
+    from fdreadoutlibs_jax.ops import TPGConfig
+    from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
+    from fdreadoutlibs_jax.ops.ingest import process_packed_frames
+    from fdreadoutlibs_jax.ops.pallas_tpg import (
         decode_pallas_hits, pack_adcs, pack_state, process_window_pallas)
 
     C, T = 128, 256
@@ -336,286 +336,12 @@ def test_bench_ingest_encoding_roundtrip():
     np.testing.assert_array_equal(h1, h2)
 
 
-class TestFusedWords14:
-    def test_fused_inkernel_unpack_matches_oracle(self):
-        """process_packed_frames_fused (in-KERNEL 14-bit unpack, words14
-        position layout) is bit-exact vs the oracle — hits and carried
-        state — including multi-link channels and the padded dead lanes."""
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops.ingest import process_packed_frames_fused
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (
-            decode_pallas_hits, pack_state, unpack_state,
-            words14_channel_of_position, words14_positions)
-
-        C, T = 128, 256
-        L, nf = C // 64, T // 64
-        cfg = TPGConfig.from_raw("AbsRS", threshold=150)
-        rng = np.random.default_rng(0)
-        adcs = (900 + rng.normal(0, 30, size=(T, C))).astype(np.int32)
-        adcs[40:48, 17] += 2000
-        adcs[100:120, 70] += 1500
-        frames = wibeth.empty_frames(L * nf)
-        a = adcs.reshape(nf, 64, L, 64).transpose(2, 0, 1, 3)
-        wibeth.set_adcs(frames,
-                        a.reshape(L * nf, 64, 64).astype(np.uint16))
-        words = jnp.asarray(
-            wibeth.frames_bytes_to_u32(frames).reshape(L, T, 28))
-        pos = words14_positions(C)
-        # the inverse map round-trips
-        inv = words14_channel_of_position(C)
-        np.testing.assert_array_equal(inv[pos], np.arange(C))
-        st = seed_chanstate(init_chanstate(C), adcs[0],
-                            cfg.rs_memory_factor_x10)
-        s0 = pack_state(st, C, positions=pos)
-        slots, nclose, s1 = process_packed_frames_fused(
-            words, s0, cfg, C, tc=64, k_slots=16, unroll=1,
-            interpret=True)
-        hits, dropped = decode_pallas_hits(slots, nclose, C, positions=pos)
-        ref, ref_st = run_reference(adcs, cfg, window=T)
-        assert dropped == 0 and len(ref) > 30
-        np.testing.assert_array_equal(hits, ref)
-        got_st = unpack_state(s1, C, positions=pos)
-        for k in ("pedestals", "accum", "rs", "pedestals_rs", "accum_rs",
-                  "hit_charge", "hit_tover", "hit_peak_adc",
-                  "hit_peak_time"):
-            np.testing.assert_array_equal(got_st[k], np.asarray(ref_st[k]),
-                                          err_msg=k)
-
-    def test_words14_block_sublanes_guard(self):
-        """The ONE resolver for fused-mode channel blocks: rounds to
-        16-row multiples and falls back to whole-block when the rounded
-        value does not tile the words14 row count — a tuned `sub` that is
-        valid for the canonical layout must never crash the fused path."""
-        from fdreadoutlibs_tpu.ops.pallas_tpg import words14_block_sublanes
-        # C=2560: G=160 -> S=32 words14 rows
-        assert words14_block_sublanes(8, 2560) == 16
-        assert words14_block_sublanes(16, 2560) == 16
-        # rounded 24->32 == S: whole-block fallback
-        assert words14_block_sublanes(24, 2560) is None
-        assert words14_block_sublanes(None, 2560) is None
-        assert words14_block_sublanes(0, 2560) is None
-        # C=6144: S=48; rounded 24->32 does not divide 48 -> fallback
-        # (the exact crash scenario from the round-3 review)
-        assert words14_block_sublanes(24, 6144) is None
-        assert words14_block_sublanes(48, 6144) is None
-        assert words14_block_sublanes(9, 6144) == 16
-
-    def test_words14_gather_formulation_parity(self):
-        """The gather-formulation in-kernel unpack (words14_gather=True:
-        static word-row concats + one full-height shift/or/mask chain) is
-        bit-identical to the per-class default — hits, counts and carried
-        state (BENCH_NOTES 'words14 gather-formulation unpack')."""
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.ingest import pack_words14_jnp
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (
-            pack_state, process_window_pallas, words14_positions)
-        C, T = 192, 128
-        L, nf = C // 64, T // 64
-        cfg = TPGConfig(threshold=150)
-        rng = np.random.default_rng(8)
-        adcs = (900 + rng.normal(0, 30, size=(T, C))).astype(np.int32)
-        adcs[40:50, 70] += 2000
-        frames = wibeth.empty_frames(L * nf)
-        a = adcs.reshape(nf, 64, L, 64).transpose(2, 0, 1, 3)
-        wibeth.set_adcs(frames,
-                        a.reshape(L * nf, 64, 64).astype(np.uint16))
-        W = pack_words14_jnp(jnp.asarray(
-            wibeth.frames_bytes_to_u32(frames).reshape(L, T, 28)))
-        pos = words14_positions(C)
-        st = seed_chanstate(init_chanstate(C), adcs[0],
-                            cfg.rs_memory_factor_x10)
-        outs = {}
-        for g in (False, True):
-            s0 = pack_state(st, C, positions=pos)
-            slots, nclose, stack = process_window_pallas(
-                W, s0, cfg, tc=64, k_slots=8, unroll=1, interpret=True,
-                words14=True, words14_gather=g)
-            outs[g] = (np.asarray(slots), np.asarray(nclose),
-                       np.asarray(stack))
-        for a_, b_ in zip(outs[False], outs[True]):
-            np.testing.assert_array_equal(a_, b_)
-
-    def test_words14_slab_schedule_parity(self):
-        """The two-stage slab schedule (words14_slab=True: whole-chunk
-        unpack into a time2-packed VMEM scratch, plain time2 tick loop) is
-        bit-identical to the per-tick in-kernel unpack — hits, counts and
-        carried state across chunk boundaries — for every algorithm
-        family, whole-block and 16-row-blocked."""
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.ingest import (pack_words14_jnp,
-                                                  process_words14_feed)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (pack_state,
-                                                      words14_positions)
-        C, T = 192, 128
-        L, nf = C // 64, T // 64
-        rng = np.random.default_rng(11)
-        adcs = (900 + rng.normal(0, 30, size=(T, C))).astype(np.int32)
-        adcs[40:50, 70] += 2000
-        adcs[90:118, 130] += 1200
-        frames = wibeth.empty_frames(L * nf)
-        a = adcs.reshape(nf, 64, L, 64).transpose(2, 0, 1, 3)
-        wibeth.set_adcs(frames,
-                        a.reshape(L * nf, 64, 64).astype(np.uint16))
-        W = pack_words14_jnp(jnp.asarray(
-            wibeth.frames_bytes_to_u32(frames).reshape(L, T, 28)))
-        pos = words14_positions(C)
-        for alg in ("SimpleThreshold", "AbsRS", "StandardRS", "FIR"):
-            cfg = TPGConfig.from_raw(alg, threshold=150)
-            st = seed_chanstate(init_chanstate(C), adcs[0],
-                                cfg.rs_memory_factor_x10)
-            for sub in (None, 16):      # whole-block and blocked
-                outs = {}
-                for slab in (False, True):
-                    s0 = pack_state(st, C, positions=pos,
-                                    block_sublanes=sub)
-                    # tc=64 < T: state carries across chunk boundaries
-                    slots, nclose, stack = process_words14_feed(
-                        W, s0, cfg, C, tc=64, k_slots=8, unroll=2,
-                        interpret=True, slab=slab)
-                    outs[slab] = (np.asarray(slots), np.asarray(nclose),
-                                  np.asarray(stack))
-                for a_, b_ in zip(outs[False], outs[True]):
-                    np.testing.assert_array_equal(
-                        a_, b_, err_msg=f"{alg} sub={sub}")
-
-    def test_fused_blocked_and_simple_threshold(self):
-        """words14 with 16-row channel blocks and the SimpleThreshold
-        family (exercises the block-split of the word-group axis)."""
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops.ingest import process_packed_frames_fused
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (
-            decode_pallas_hits, pack_state, words14_positions)
-
-        C, T = 192, 128            # 3 links -> G=12 groups, WR=1
-        L, nf = C // 64, T // 64
-        cfg = TPGConfig(threshold=150)
-        rng = np.random.default_rng(5)
-        adcs = (900 + rng.normal(0, 30, size=(T, C))).astype(np.int32)
-        adcs[50:60, 130] += 2000
-        frames = wibeth.empty_frames(L * nf)
-        a = adcs.reshape(nf, 64, L, 64).transpose(2, 0, 1, 3)
-        wibeth.set_adcs(frames,
-                        a.reshape(L * nf, 64, 64).astype(np.uint16))
-        words = jnp.asarray(
-            wibeth.frames_bytes_to_u32(frames).reshape(L, T, 28))
-        pos = words14_positions(C)
-        st = seed_chanstate(init_chanstate(C), adcs[0],
-                            cfg.rs_memory_factor_x10)
-        s0 = pack_state(st, C, positions=pos, block_sublanes=16)
-        slots, nclose, _ = process_packed_frames_fused(
-            words, s0, cfg, C, tc=64, k_slots=8, unroll=1, interpret=True)
-        hits, dropped = decode_pallas_hits(slots, nclose, C, positions=pos)
-        ref, _ = run_reference(adcs, cfg, window=T)
-        assert dropped == 0 and len(ref) > 0
-        np.testing.assert_array_equal(hits, ref)
-
-
-def test_streaming_ingest_fused_matches_oracle():
-    """StreamingIngest(fused=True): in-kernel unpack across pipelined
-    batches, host decode AND device compaction, bit-exact vs the oracle."""
-    L, N = 2, 2
-    frames, adcs = make_frames(L, N, pulse=(1, 1, 10, 5, 2000))
-    cfg = TPGConfig(threshold=150)
-    for compact in (False, True):
-        ing = StreamingIngest(cfg, n_links=L, tc=64, k_slots=8,
-                              interpret=True, fused=True,
-                              device_compact=compact)
-        parts, dropped = [], 0
-        for _ in range(2):
-            out = ing.submit(frames)
-            if out:
-                parts.append(out[0])
-                dropped += out[1]
-        out = ing.flush()
-        parts.append(out[0])
-        dropped += out[1]
-        got = concat_hits(parts)
-        stream = np.tile(link_major_stream(adcs), (2, 1))
-        ref, _ = run_reference(stream, cfg, window=N * 64)
-        assert len(ref) > 0 and dropped == 0
-        np.testing.assert_array_equal(got, ref)
-    import pytest
-    with pytest.raises(ValueError, match="fused"):
-        StreamingIngest(cfg, n_links=L, format="wib2", fused=True)
-
-
-class TestWords14Feed:
-    def test_relayout_native_and_numpy_match_device(self):
-        """native.relayout_words14 (C++ and the numpy fallback) produce
-        exactly the device relayout (pack_words14_jnp), incl. the
-        G>128 lane-pad case and a non-multiple-of-block T."""
-        from fdreadoutlibs_tpu import native
-        from fdreadoutlibs_tpu.ops.ingest import pack_words14_jnp
-        rng = np.random.default_rng(11)
-        for L, T in [(2, 64), (33, 96), (40, 65)]:
-            words = rng.integers(0, 2 ** 32, size=(L, T, 28),
-                                 dtype=np.uint32)
-            ref = np.asarray(pack_words14_jnp(words))
-            got = native.relayout_words14(words)
-            assert got.dtype == np.int32
-            np.testing.assert_array_equal(got, ref)
-
-    def test_relayout_numpy_fallback(self, monkeypatch):
-        from fdreadoutlibs_tpu import native
-        rng = np.random.default_rng(12)
-        words = rng.integers(0, 2 ** 32, size=(3, 64, 28), dtype=np.uint32)
-        ref = native.relayout_words14(words)
-        monkeypatch.setattr(native, "load", lambda: None)
-        np.testing.assert_array_equal(native.relayout_words14(words), ref)
-
-    def test_submit_words14_matches_submit_words(self):
-        """The direct words14 feed is hit-for-hit and state-for-state
-        identical to the fused (L,T,28) path — the device relayout and the
-        host relayout commute with the kernel."""
-        from fdreadoutlibs_tpu import native
-        from fdreadoutlibs_tpu.ops.ingest import host_words
-        L, N = 2, 2
-        frames, adcs = make_frames(L, N, pulse=(1, 1, 10, 5, 2000))
-        cfg = TPGConfig(threshold=150)
-        from fdreadoutlibs_tpu.formats import wibeth
-        words = host_words(frames.reshape(-1, wibeth.FRAME_SIZE)) \
-            .reshape(L, N * 64, 28)
-
-        outs = {}
-        for mode in ("words", "feed"):
-            ing = StreamingIngest(cfg, n_links=L, tc=64, k_slots=8,
-                                  interpret=True, fused=True)
-            parts, dropped = [], 0
-            for _ in range(2):
-                out = ing.submit_words(words) if mode == "words" else \
-                    ing.submit_words14(native.relayout_words14(words))
-                if out:
-                    parts.append(out[0])
-                    dropped += out[1]
-            out = ing.flush()
-            parts.append(out[0])
-            dropped += out[1]
-            assert dropped == 0
-            outs[mode] = (concat_hits(parts),
-                          np.asarray(ing.stack))
-        np.testing.assert_array_equal(outs["words"][0], outs["feed"][0])
-        np.testing.assert_array_equal(outs["words"][1], outs["feed"][1])
-        # the non-fused ingest rejects the feed
-        import pytest
-        plain = StreamingIngest(cfg, n_links=L, tc=64, interpret=True)
-        with pytest.raises(ValueError, match="fused"):
-            plain.submit_words14(native.relayout_words14(words))
-
-
 class TestTime2Feed:
     def test_relayout_native_numpy_and_semantics(self, monkeypatch):
         """native.relayout_time2 (C++ and numpy fallback) agree and match
         the canonical pack_adcs_time2 of the unpacked stream."""
-        from fdreadoutlibs_tpu import native
-        from fdreadoutlibs_tpu.ops.pallas_tpg import pack_adcs_time2
+        from fdreadoutlibs_jax import native
+        from fdreadoutlibs_jax.ops.pallas_tpg import pack_adcs_time2
         for L, N, seed in [(2, 2, 5), (3, 3, 6)]:
             frames, adcs = make_frames(L, N, seed=seed)
             words = host_words(frames.reshape(-1, wibeth.FRAME_SIZE)) \
@@ -633,11 +359,11 @@ class TestTime2Feed:
         """pad8=False ships only ceil(C/128) rows; process_time2_feed
         pads on device — hits and carried state must be bit-exact vs the
         host-padded feed (the apa_readout time2 transfer cut)."""
-        from fdreadoutlibs_tpu import native
-        from fdreadoutlibs_tpu.ops.ingest import process_time2_feed
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
+        from fdreadoutlibs_jax import native
+        from fdreadoutlibs_jax.ops.ingest import process_time2_feed
+        from fdreadoutlibs_jax.ops.chanstate import (init_chanstate,
                                                      seed_chanstate)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import pack_state
+        from fdreadoutlibs_jax.ops.pallas_tpg import pack_state
         L, N = 9, 2            # C=576: 5 data rows, padded S=8
         frames, adcs = make_frames(L, N, pulse=(4, 1, 12, 6, 2200))
         C = L * 64
@@ -665,7 +391,7 @@ class TestTime2Feed:
     def test_submit_time2_matches_submit_words(self):
         """The time-paired host feed is hit-for-hit and state-for-state
         identical to the plain packed-words path."""
-        from fdreadoutlibs_tpu import native
+        from fdreadoutlibs_jax import native
         L, N = 2, 2
         frames, adcs = make_frames(L, N, pulse=(1, 1, 10, 5, 2000))
         cfg = TPGConfig(threshold=150)
@@ -690,20 +416,12 @@ class TestTime2Feed:
             outs[mode] = (concat_hits(parts), np.asarray(ing.stack))
         np.testing.assert_array_equal(outs["words"][0], outs["time2"][0])
         np.testing.assert_array_equal(outs["words"][1], outs["time2"][1])
-        # fused (words14-layout) ingest rejects the canonical time2 feed
-        import pytest
-        fused = StreamingIngest(cfg, n_links=L, tc=64, interpret=True,
-                                fused=True)
-        with pytest.raises(ValueError, match="fused=False"):
-            fused.submit_time2(native.relayout_time2(words))
-        with pytest.raises(ValueError, match="exclusive"):
-            StreamingIngest(cfg, n_links=L, fused=True, time2=True)
 
     def test_time2_mode_all_formats(self):
         """StreamingIngest(time2=True): submit() relayouts on the host
         (format-specific codec) and runs the time_packed kernel — hits
         identical to the plain packed-words path for every format."""
-        from fdreadoutlibs_tpu.formats import daphne, wib2
+        from fdreadoutlibs_jax.formats import daphne, wib2
         rng = np.random.default_rng(21)
         cfg = TPGConfig(threshold=120)
 
@@ -745,7 +463,7 @@ class TestTime2Feed:
                                           err_msg=fmt)
 
     def test_relayout_time2_input_validation(self):
-        from fdreadoutlibs_tpu import native
+        from fdreadoutlibs_jax import native
         import pytest
         with pytest.raises(ValueError, match="even tick count"):
             native.relayout_time2(
@@ -761,7 +479,7 @@ class TestTime2Feed:
     def test_relayout_time2_generic_native_vs_numpy(self, monkeypatch):
         """C++ and numpy fallbacks agree for the wib2 (channel-major,
         cpl=256) and daphne (time-major frames) relayout variants."""
-        from fdreadoutlibs_tpu import native
+        from fdreadoutlibs_jax import native
         rng = np.random.default_rng(33)
         w2 = rng.integers(0, 2 ** 32, size=(2, 48, 112), dtype=np.uint32)
         dp = rng.integers(0, 2 ** 32, size=(3, 2, 112), dtype=np.uint32)

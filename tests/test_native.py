@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu import native
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.formats.trigprim import TP_DTYPE, make_tps
-from fdreadoutlibs_tpu.tp.latency_buffer import make_latency_buffer
+from fdreadoutlibs_jax import native
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.formats.trigprim import TP_DTYPE, make_tps
+from fdreadoutlibs_jax.tp.latency_buffer import make_latency_buffer
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")
@@ -73,8 +73,8 @@ class TestNativeLatencyBuffer:
         assert buf.occupancy() == 3
 
     def test_request_handler_with_native_buffer(self):
-        from fdreadoutlibs_tpu.stream.transport import QueueSender
-        from fdreadoutlibs_tpu.tp import TPRequestHandler
+        from fdreadoutlibs_jax.stream.transport import QueueSender
+        from fdreadoutlibs_jax.tp import TPRequestHandler
         sink = QueueSender()
         h = TPRequestHandler(tpset_sink=sink,
                              latency_buffer=make_latency_buffer(TP_DTYPE))
@@ -158,7 +158,7 @@ class TestRelayoutOutReuse:
         """WIB2 shapes (ch_per_link=256, nw=112) through the generic
         codec vs an independent bitpack oracle — the differential behind
         the WIB2 tpg_time2_feed path."""
-        from fdreadoutlibs_tpu.formats.bitpack import unpack_14bit
+        from fdreadoutlibs_jax.formats.bitpack import unpack_14bit
         rng = np.random.default_rng(11)
         L, T, cpl = 3, 24, 256
         words = rng.integers(0, 2 ** 32, size=(L, T, 112), dtype=np.uint32)
@@ -205,12 +205,7 @@ class TestRelayoutOutReuse:
         assert res is out
         np.testing.assert_array_equal(res, fresh)
 
-    def test_words14_and_daphne_out(self):
-        words = self._words()
-        fresh = native.relayout_words14(words)
-        out = np.empty(fresh.shape, np.int32)
-        np.testing.assert_array_equal(
-            native.relayout_words14(words, out=out), fresh)
+    def test_daphne_out(self):
         rng = np.random.default_rng(5)
         dw = rng.integers(0, 2 ** 32, size=(3, 4, 112), dtype=np.uint32)
         dfresh = native.relayout_time2_daphne(dw)
@@ -219,8 +214,8 @@ class TestRelayoutOutReuse:
             native.relayout_time2_daphne(dw, out=dout), dfresh)
 
     def test_streaming_ingest_double_buffers(self):
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.ops.ingest import StreamingIngest
+        from fdreadoutlibs_jax.ops import TPGConfig
+        from fdreadoutlibs_jax.ops.ingest import StreamingIngest
         ing = StreamingIngest(TPGConfig.from_raw("SimpleThreshold",
                                                  threshold=150),
                               n_links=2, time2=True, interpret=True)
@@ -243,9 +238,6 @@ class TestRelayoutOutReuse:
         for L, T in [(3, 384), (5, 64)]:
             w = rng.integers(0, 2 ** 32, size=(L, T, 28), dtype=np.uint32)
             t2 = native.relayout_time2(w)
-            w14 = native.relayout_words14(w)
             for nt in (2, 3, 7):
                 np.testing.assert_array_equal(
                     native.relayout_time2(w, nthreads=nt), t2)
-                np.testing.assert_array_equal(
-                    native.relayout_words14(w, nthreads=nt), w14)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.ops import TPGConfig
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.parallel import APAPipeline, make_link_mesh
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.ops import TPGConfig
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.parallel import APAPipeline, make_link_mesh
 
 
 def make_words(n_links, n_frames, seed=0):
@@ -76,7 +76,7 @@ def test_state_carries_across_sharded_steps():
 @pytest.mark.parametrize("alg", ["AbsRS", "FIR"])
 def test_sharded_other_algorithms(alg):
     """RS/FIR state (incl. the FIR ring buffer) shards correctly."""
-    from fdreadoutlibs_tpu.ops.config import Algorithm
+    from fdreadoutlibs_jax.ops.config import Algorithm
     mesh = make_link_mesh(4)
     cfg = TPGConfig(algorithm=Algorithm(alg) if alg != "FIR"
                     else Algorithm.FIR,
@@ -94,7 +94,7 @@ def test_sharded_other_algorithms(alg):
 def test_sharded_pallas_fir_no_peak_records():
     """The 2-word (no-peak) record layout flows through the multi-chip
     pallas path's device-side compaction (peak fields emit zero)."""
-    from fdreadoutlibs_tpu.ops.config import Algorithm
+    from fdreadoutlibs_jax.ops.config import Algorithm
     mesh = make_link_mesh(2)
     cfg = TPGConfig(algorithm=Algorithm.FIR, threshold=5,
                     track_peaks=False)
@@ -135,38 +135,6 @@ def test_sharded_pallas_backend(n_devices):
         np.testing.assert_array_equal(got[:, 2], h_ref["charge"])
         np.testing.assert_array_equal(got[:, 5], h_ref["peak_time"])
     assert total == int(n_hits.sum())
-
-
-@pytest.mark.parametrize("n_devices", [1, 2])
-def test_sharded_pallas_fused_unpack(n_devices):
-    """fused_unpack: the in-kernel words14 unpack runs per shard inside
-    shard_map; hits and carried state match the oracle bit-for-bit."""
-    mesh = make_link_mesh(n_devices)
-    n_links = 4
-    cfg = TPGConfig(threshold=120)
-    pipe = APAPipeline(n_links, cfg, mesh=mesh, backend="pallas",
-                       interpret=True, fused_unpack=True)
-    words, all_adcs = make_words(n_links, n_frames=2)
-    hits, n_hits, total = pipe.process(words)
-    hits, n_hits = np.asarray(hits), np.asarray(n_hits)
-    for l in range(n_links):
-        h_ref, st_ref = run_reference(all_adcs[l], cfg, window=128)
-        assert n_hits[l] == len(h_ref), f"link {l}"
-        got = hits[l][: n_hits[l]]
-        np.testing.assert_array_equal(got[:, 0], h_ref["channel"])
-        np.testing.assert_array_equal(got[:, 1], h_ref["end_tick"])
-        np.testing.assert_array_equal(got[:, 2], h_ref["charge"])
-        np.testing.assert_array_equal(got[:, 4], h_ref["peak_adc"])
-        # carried state round-trips through the positions layout
-        ped = np.asarray(pipe.state["pedestals"][l])
-        np.testing.assert_array_equal(ped, st_ref["pedestals"])
-    assert total == int(n_hits.sum())
-
-
-def test_fused_unpack_requires_pallas_backend():
-    with pytest.raises(ValueError, match="fused_unpack"):
-        APAPipeline(2, TPGConfig(threshold=120), mesh=make_link_mesh(2),
-                    backend="scan", fused_unpack=True)
 
 
 @pytest.mark.parametrize("n_devices", [1, 2])

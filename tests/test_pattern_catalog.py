@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.ops import patterns
-from fdreadoutlibs_tpu.stream import WIBEthFrameProcessor
-from fdreadoutlibs_tpu.stream.transport import QueueSender
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.ops import patterns
+from fdreadoutlibs_jax.stream import WIBEthFrameProcessor
+from fdreadoutlibs_jax.stream.transport import QueueSender
 
 TS0 = 0x66583B8C7E967
 

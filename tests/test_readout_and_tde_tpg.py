@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import tde, wibeth
-from fdreadoutlibs_tpu.formats.adapters import get_adapter
-from fdreadoutlibs_tpu.stream.tde import TDEFrameProcessor
-from fdreadoutlibs_tpu.stream.transport import QueueSender
-from fdreadoutlibs_tpu.tp.readout_buffer import ReadoutRequestHandler
+from fdreadoutlibs_jax.formats import tde, wibeth
+from fdreadoutlibs_jax.formats.adapters import get_adapter
+from fdreadoutlibs_jax.stream.tde import TDEFrameProcessor
+from fdreadoutlibs_jax.stream.transport import QueueSender
+from fdreadoutlibs_jax.tp.readout_buffer import ReadoutRequestHandler
 
 
 class TestReadoutRequestHandler:
@@ -68,7 +68,7 @@ def _payload_buffer(impl, size, capacity=None):
     """Both ordered payload buffers share one contract; the conformance
     tests below run against each (ring = copying arena, zerocopy =
     segment-reference retention)."""
-    from fdreadoutlibs_tpu.tp.readout_buffer import (PayloadRingBuffer,
+    from fdreadoutlibs_jax.tp.readout_buffer import (PayloadRingBuffer,
                                                      SegmentedPayloadBuffer)
     cls = PayloadRingBuffer if impl == "ring" else SegmentedPayloadBuffer
     return cls(size, capacity=capacity)
@@ -196,7 +196,7 @@ class TestRetentionSelection:
         copying PayloadRingBuffer'; it must still select it (a producer
         that recycles its frame buffers depends on the copy).  Only the
         no-kwargs default is zero-copy."""
-        from fdreadoutlibs_tpu.tp.readout_buffer import (
+        from fdreadoutlibs_jax.tp.readout_buffer import (
             PayloadRingBuffer, SegmentedPayloadBuffer)
         a = get_adapter("wibeth")
         assert isinstance(ReadoutRequestHandler(a).buffer,
@@ -210,7 +210,7 @@ class TestRetentionSelection:
 
 class TestFragments:
     def test_request_fragment(self):
-        from fdreadoutlibs_tpu.formats.fragment import Fragment
+        from fdreadoutlibs_jax.formats.fragment import Fragment
         h = ReadoutRequestHandler(get_adapter("wibeth"), prefer_native=False)
         frames = wibeth.empty_frames(4)
         wibeth.fake_timestamps(frames, 10_000)
@@ -228,7 +228,7 @@ class TestFragments:
 
 class TestFragmentRecorder:
     def test_write_read_roundtrip(self, tmp_path):
-        from fdreadoutlibs_tpu.tp.recorder import FragmentRecorder
+        from fdreadoutlibs_jax.tp.recorder import FragmentRecorder
         h = ReadoutRequestHandler(get_adapter("wibeth"), prefer_native=False)
         frames = wibeth.empty_frames(6)
         wibeth.fake_timestamps(frames, 10_000)
@@ -256,8 +256,8 @@ class TestFragmentRecorder:
     def test_structured_payloads_roundtrip_dtype(self, tmp_path):
         """Ring-retention fragments carry structured records; read()
         must restore the exact dtype, not uint8 rows (round-5 review)."""
-        from fdreadoutlibs_tpu.formats.fragment import build_fragment
-        from fdreadoutlibs_tpu.tp.recorder import FragmentRecorder
+        from fdreadoutlibs_jax.formats.fragment import build_fragment
+        from fdreadoutlibs_jax.tp.recorder import FragmentRecorder
         dt = np.dtype([("time_start", "<u8"), ("payload", "u1", (16,))])
         recs = np.zeros(3, dtype=dt)
         recs["time_start"] = [10, 20, 30]

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.apps.scheduler import MultiAPAScheduler
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.ops import TPGConfig
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.hits import sort_hits
-from fdreadoutlibs_tpu.ops.reference import process_window_reference
+from fdreadoutlibs_jax.apps.scheduler import MultiAPAScheduler
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.ops import TPGConfig
+from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
+from fdreadoutlibs_jax.ops.hits import sort_hits
+from fdreadoutlibs_jax.ops.reference import process_window_reference
 
 
 def _make_batch(rng, n_links, n_frames, hot=None):

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.ops import TPGConfig, Algorithm
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.stream.simulation import (bipolar_pulse,
+from fdreadoutlibs_jax.ops import TPGConfig, Algorithm
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.stream.simulation import (bipolar_pulse,
                                                  simulate_stream,
                                                  unipolar_pulse)
 

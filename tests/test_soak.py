@@ -5,7 +5,7 @@ meets in deployment)."""
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.ops import TPGConfig, Algorithm
+from fdreadoutlibs_jax.ops import TPGConfig, Algorithm
 from tests.test_tpg_scan import random_stream, run_scan
 
 

@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.formats import daphne, ssp, tde, wib2
-from fdreadoutlibs_tpu.formats.trigprim import make_tps
-from fdreadoutlibs_tpu.ops import patterns
-from fdreadoutlibs_tpu.stream import (DAPHNEFrameProcessor,
+from fdreadoutlibs_jax.formats import daphne, ssp, tde, wib2
+from fdreadoutlibs_jax.formats.trigprim import make_tps
+from fdreadoutlibs_jax.ops import patterns
+from fdreadoutlibs_jax.stream import (DAPHNEFrameProcessor,
                                       DAPHNEStreamFrameProcessor,
                                       SSPFrameProcessor,
                                       SWTriggerPrimitiveProcessor,
                                       TDEFrameProcessor, WIB2FrameProcessor)
-from fdreadoutlibs_tpu.stream.transport import QueueSender
+from fdreadoutlibs_jax.stream.transport import QueueSender
 
 
 class TestWIB2Processor:

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.formats import protowib
-from fdreadoutlibs_tpu.formats.trigprim import make_tps
-from fdreadoutlibs_tpu.stream.protowib import WIBFrameProcessor
-from fdreadoutlibs_tpu.stream.transport import QueueSender
-from fdreadoutlibs_tpu.tp.wib_tp_handler import WIBTPHandler
+from fdreadoutlibs_jax.formats import protowib
+from fdreadoutlibs_jax.formats.trigprim import make_tps
+from fdreadoutlibs_jax.stream.protowib import WIBFrameProcessor
+from fdreadoutlibs_jax.stream.transport import QueueSender
+from fdreadoutlibs_jax.tp.wib_tp_handler import WIBTPHandler
 
 
 def make_superchunks(n, pulse_chan=None, pulse_amp=600, base=800, seed=0):
@@ -151,7 +151,8 @@ def test_backend_equivalence_protowib():
     pulse_chan = int(protowib.COLLECTION_INDEX_TO_CHAN[10])
     results = {}
     for backend in ("reference", "scan", "pallas"):
-        proc, handler = make_processor(tpg_backend=backend)
+        proc, handler = make_processor(
+            tpg_backend=backend, tpg_pallas_interpret=backend == "pallas")
         sc, _ = make_superchunks(16, pulse_chan=pulse_chan, pulse_amp=700)
         proc.process(sc)
         tpset = handler.try_sending_tpsets(10**12)
@@ -259,7 +260,7 @@ def test_pallas_time2_feed_matches_packed():
 def test_protowib_time2_codec_parity():
     """native.relayout_time2_protowib == numpy fallback == direct decode,
     both planes, incl. out= reuse."""
-    from fdreadoutlibs_tpu import native
+    from fdreadoutlibs_jax import native
     rng = np.random.default_rng(5)
     T = 24
     frames = protowib.empty_frames(T)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import wibeth
-from fdreadoutlibs_tpu.ops import patterns
-from fdreadoutlibs_tpu.stream import WIBEthFrameProcessor
-from fdreadoutlibs_tpu.stream.transport import QueueSender
+from fdreadoutlibs_jax.formats import wibeth
+from fdreadoutlibs_jax.ops import patterns
+from fdreadoutlibs_jax.stream import WIBEthFrameProcessor
+from fdreadoutlibs_jax.stream.transport import QueueSender
 
 
 def make_processor(backend="scan", **conf_overrides):
@@ -192,7 +192,7 @@ class TestLazyDeviceState:
         p_pal.process(frames[2:])
         p_scan.process(frames[2:])
         assert p_pal._state_stale
-        from fdreadoutlibs_tpu.utils.checkpoint import (
+        from fdreadoutlibs_jax.utils.checkpoint import (
             checkpoint_processor, load_state)
         import tempfile, os
         with tempfile.TemporaryDirectory() as d:

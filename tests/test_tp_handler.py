@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.formats.trigprim import TPSetType, make_tps
-from fdreadoutlibs_tpu.stream.transport import QueueSender
-from fdreadoutlibs_tpu.tp import LatencyBuffer, TPRequestHandler
+from fdreadoutlibs_jax.formats.trigprim import TPSetType, make_tps
+from fdreadoutlibs_jax.stream.transport import QueueSender
+from fdreadoutlibs_jax.tp import LatencyBuffer, TPRequestHandler
 
 
 def tps_at(times, channels=None):
@@ -275,7 +275,7 @@ class TestTPRequestHandler:
     def test_metrics_channel_tps_vectorized(self):
         """add_channel_tps is an O(1) append (hot path); counts
         consolidate lazily on the top_channels/get_info query."""
-        from fdreadoutlibs_tpu.utils.metrics import MetricsCollector
+        from fdreadoutlibs_jax.utils.metrics import MetricsCollector
         m = MetricsCollector()
         m.add_channel_tps(np.array([3, 3, 7, 3, 9]))
         m.add_channel_tps(np.array([7]))
@@ -295,8 +295,8 @@ class TestTPRequestHandler:
         time, so sustained >10x-real-time operation leaves ~0.4 ms of host
         budget per window.  Median-of-5 with a 2x margin for CI jitter."""
         import time as _t
-        from fdreadoutlibs_tpu.ops.pallas_tpg import decode_pallas_hits
-        from fdreadoutlibs_tpu.utils.metrics import MetricsCollector
+        from fdreadoutlibs_jax.ops.pallas_tpg import decode_pallas_hits
+        from fdreadoutlibs_jax.utils.metrics import MetricsCollector
 
         C, n_chunks, K, sub = 2560, 8, 1, 24
         rng = np.random.default_rng(0)
@@ -344,7 +344,7 @@ class TestTPRequestHandler:
     def test_tp_fragment_request_and_record(self, tmp_path=None):
         """TP window -> kTriggerPrimitive Fragment, recordable/readable."""
         import tempfile
-        from fdreadoutlibs_tpu.tp.recorder import FragmentRecorder
+        from fdreadoutlibs_jax.tp.recorder import FragmentRecorder
         h, sink = self.make()
         h.insert_tps(tps_at([10, 20, 30, 40]))
         frag = h.request_fragment(15, 35, run_number=123, trigger_number=9,
@@ -439,9 +439,9 @@ class TestHostileTimestamps:
     def test_native_snapshot_includes_top_bit_keys(self):
         """The native adapter's snapshot was extract_window(lo, 1<<63)
         and silently dropped top-bit-set timestamps (fuzz seed 56021+)."""
-        from fdreadoutlibs_tpu import native
-        from fdreadoutlibs_tpu.formats.trigprim import TP_DTYPE
-        from fdreadoutlibs_tpu.tp.latency_buffer import \
+        from fdreadoutlibs_jax import native
+        from fdreadoutlibs_jax.formats.trigprim import TP_DTYPE
+        from fdreadoutlibs_jax.tp.latency_buffer import \
             NativeLatencyBufferAdapter
         if not native.available():
             import pytest
@@ -456,9 +456,9 @@ class TestHostileTimestamps:
         """Bare int() through ctypes c_uint64 WRAPS (-5 -> 2**64-5,
         1<<64 -> 0): the native adapter silently inverted out-of-range
         windows the python buffer saturates (round-5 review)."""
-        from fdreadoutlibs_tpu import native
-        from fdreadoutlibs_tpu.formats.trigprim import TP_DTYPE
-        from fdreadoutlibs_tpu.tp.latency_buffer import \
+        from fdreadoutlibs_jax import native
+        from fdreadoutlibs_jax.formats.trigprim import TP_DTYPE
+        from fdreadoutlibs_jax.tp.latency_buffer import \
             NativeLatencyBufferAdapter
         if not native.available():
             import pytest
@@ -477,7 +477,7 @@ class TestHostileTimestamps:
         """The raw-retention buffers had the same float64 searchsorted
         promotion LatencyBuffer._exact_key fixed: boundaries near 2**63
         rounded onto neighboring keys (round-5 review)."""
-        from fdreadoutlibs_tpu.tp.readout_buffer import (
+        from fdreadoutlibs_jax.tp.readout_buffer import (
             PayloadRingBuffer, SegmentedPayloadBuffer)
         base = (1 << 63) - 5001
         keys = np.array([base, base + 1, base + 3], dtype=np.uint64)
@@ -503,7 +503,7 @@ class TestHostileTimestamps:
         sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "scripts"))
         import fuzz_tp_path as F
-        from fdreadoutlibs_tpu import native
+        from fdreadoutlibs_jax import native
         for seed in (56152, 56156, 56000):
             res = F.run_case(seed, native.available())
             assert res["failures"] == [], res

@@ -1,11 +1,10 @@
 """FIR+IQR family tests: filter design, oracle behavior, backend parity."""
 
 import numpy as np
-import pytest
 
-from fdreadoutlibs_tpu.ops import TPGConfig, Algorithm
-from fdreadoutlibs_tpu.ops.fir import default_taps, firwin, firwin_int
-from fdreadoutlibs_tpu.ops.reference import run_reference
+from fdreadoutlibs_jax.ops import TPGConfig, Algorithm
+from fdreadoutlibs_jax.ops.fir import default_taps, firwin, firwin_int
+from fdreadoutlibs_jax.ops.reference import run_reference
 from tests.test_tpg_scan import random_stream, run_scan
 from tests.test_tpg_pallas import run_pallas
 
@@ -99,39 +98,19 @@ class TestFIRBackendParity:
                                       st_ref["fir_prev"])
 
     def test_pallas_multiblock_default(self):
-        """The blocked (nb>1) grid must stay bit-exact vs the oracle.
-        FIR ships 8-row channel blocks (pallas_tpg.SHIPPED_KNOBS — the
-        whole-block alternative is bimodal across sessions, BENCH_NOTES
-        round-2c); the expectations are pinned so a knob change must
-        consciously update this test."""
-        from fdreadoutlibs_tpu.ops.pallas_tpg import default_block_sublanes
+        """The blocked (nb>1) grid at the shipped channel block must stay
+        bit-exact vs the oracle (utils.tuning.KERNEL_KNOBS)."""
+        from fdreadoutlibs_jax.utils.tuning import kernel_knobs
         C = 1024 + 256
-        assert default_block_sublanes(FIR_CFG, C) == 8
-        assert default_block_sublanes(FIR_CFG, 64) is None  # single block
+        sub = kernel_knobs(FIR_CFG, C)["block_sublanes"]
         adcs = random_stream(64, C, seed=37, noise=4, base=900, n_signals=400)
         h_ref, _ = run_reference(adcs, FIR_CFG)
         h_pal, _, dropped = run_pallas(adcs, FIR_CFG, tc=32, k_slots=4,
-                                       block_sublanes=8)
+                                       block_sublanes=sub)
         assert dropped == 0
         assert len(h_ref) > 0
         assert h_ref["channel"].max() >= 1024   # hits beyond block 0
         np.testing.assert_array_equal(h_pal, h_ref)
-
-    def test_pallas_packed_swar_layout(self):
-        """The packed SWAR carry (IQR pairs + charge|tover|prev word) is
-        bit-exact vs the oracle, including carried state across windows."""
-        adcs = random_stream(96, 48, seed=41, noise=4, base=900, n_signals=40)
-        h_ref, st_ref = run_reference(adcs, FIR_CFG, window=96)
-        h_pk, st_pk, dropped = run_pallas(adcs, FIR_CFG, tc=32, window=32,
-                                          fir_packed=True)
-        assert dropped == 0
-        assert len(h_ref) > 0
-        np.testing.assert_array_equal(h_pk, h_ref)
-        for k in ("quantile25", "quantile75", "accum25", "accum75",
-                  "pedestals", "accum", "hit_charge", "hit_tover",
-                  "prev_was_over"):
-            np.testing.assert_array_equal(st_pk[k][:48],
-                                          np.asarray(st_ref[k]), err_msg=k)
 
     def test_pallas_multiblock_window_carry(self):
         """Blocked (nb>1) state write-back must carry bit-exactly across
@@ -146,24 +125,6 @@ class TestFIRBackendParity:
         for k in st_one:
             np.testing.assert_array_equal(np.asarray(st_one[k]),
                                           np.asarray(st_two[k]), err_msg=k)
-
-    def test_frugal_acc_bias_equivariance(self):
-        """frugal_update(m+A, s+A, acc+B, L, acc_bias=B) ==
-        frugal_update(m, s, acc, L) + (A, B) — the property the packed
-        (biased-unsigned) SWAR halves rely on."""
-        from fdreadoutlibs_tpu.ops.step import frugal_update
-        rng = np.random.default_rng(7)
-        m = rng.integers(-100, 16400, size=256)
-        s = rng.integers(-100, 16400, size=256)
-        acc = rng.integers(-11, 12, size=256)
-        mask = rng.random(256) < 0.5
-        A, B = 1 << 15, 1 << 15
-        for mk in (None, mask):
-            m1, a1 = frugal_update(m, s, acc, 10, np, mask=mk)
-            m2, a2 = frugal_update(m + A, s + A, acc + B, 10, np, mask=mk,
-                                   acc_bias=B)
-            np.testing.assert_array_equal(m2 - A, m1)
-            np.testing.assert_array_equal(a2 - B, a1)
 
     def test_window_invariance_with_fir_state(self):
         """The FIR ring buffer must carry across window boundaries."""
@@ -182,8 +143,8 @@ class TestMergedQuantileEquivalence:
     @staticmethod
     def _r2_iqr_and_thr(st, s_raw, cfg):
         """Independent implementation of the old formulation."""
-        from fdreadoutlibs_tpu.ops.fixedpoint import I32Fx, wrap_i16
-        from fdreadoutlibs_tpu.ops.step import frugal_update
+        from fdreadoutlibs_jax.ops.fixedpoint import I32Fx, wrap_i16
+        from fdreadoutlibs_jax.ops.step import frugal_update
         fx = I32Fx.make(np)
         limit = cfg.accumulator_limit
         med0 = st["pedestals"]
@@ -199,8 +160,8 @@ class TestMergedQuantileEquivalence:
         return q25, a25, q75, a75, thr
 
     def test_random_streams_and_states(self):
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.ops.fir import default_taps, tpg_tick_fir
+        from fdreadoutlibs_jax.ops import TPGConfig
+        from fdreadoutlibs_jax.ops.fir import default_taps, tpg_tick_fir
         rng = np.random.default_rng(123)
         C = 512
         for threshold in (5, 100, 700):     # incl. a wrap-exercising one
@@ -238,7 +199,7 @@ class TestMergedQuantileEquivalence:
         """wrap(wrap(a)*T) == wrap(a*T) whenever a*T fits int32 — the
         identity behind dropping the intermediate wrap in the threshold
         product (mod-2^16 congruence through mullo)."""
-        from fdreadoutlibs_tpu.ops.fixedpoint import wrap_i16
+        from fdreadoutlibs_jax.ops.fixedpoint import wrap_i16
         rng = np.random.default_rng(5)
         # a spans the worst case |a| <= 2^16 << 6 used by the trace-time
         # guard; T up to the guard's 511 bound
@@ -246,161 +207,3 @@ class TestMergedQuantileEquivalence:
         for T in (1, 5, 320, 511, -511):
             np.testing.assert_array_equal(
                 wrap_i16(wrap_i16(a) * T), wrap_i16(a * T))
-
-
-class TestFIRTwoPass:
-    """The two-pass Pallas schedules (pallas_tpg._fir2_kernel: recurrent
-    pedestal/IQR pass -> whole-slab filter+threshold -> recurrent hit
-    pass; fir_twopass=2 additionally lifts closed detection and K-slot
-    emission into slab ops) compose the SAME fir.py tick pieces as the
-    fused kernel, so they must be bit-exact vs the oracle — hits, counts,
-    and carried state — across every input encoding and config variant
-    the fused path has."""
-
-    @pytest.mark.parametrize("tp", [1, 2])
-    def test_matches_reference_with_window_carry(self, tp):
-        adcs = random_stream(128, 48, seed=33, noise=4, base=900,
-                             n_signals=60)
-        h_ref, st_ref = run_reference(adcs, FIR_CFG, window=128)
-        h_tp, st_tp, dropped = run_pallas(adcs, FIR_CFG, tc=32, window=64,
-                                          fir_twopass=tp)
-        assert dropped == 0 and len(h_ref) > 0
-        np.testing.assert_array_equal(h_tp, h_ref)
-        np.testing.assert_array_equal(st_tp["fir_prev"][:, :48],
-                                      st_ref["fir_prev"])
-        for k in ("pedestals", "quantile25", "quantile75", "hit_charge",
-                  "hit_tover", "prev_was_over"):
-            np.testing.assert_array_equal(st_tp[k][:48],
-                                          np.asarray(st_ref[k]), err_msg=k)
-
-    @pytest.mark.parametrize("tp", [1, 2])
-    def test_multiblock(self, tp):
-        """Blocked grid (nb>1): per-block scratch slabs must not leak
-        across channel blocks."""
-        C = 256
-        adcs = random_stream(64, C, seed=37, noise=4, base=900,
-                             n_signals=80)
-        h_ref, _ = run_reference(adcs, FIR_CFG)
-        h_tp, _, dropped = run_pallas(adcs, FIR_CFG, tc=32, k_slots=4,
-                                      block_sublanes=8, fir_twopass=tp)
-        assert dropped == 0 and len(h_ref) > 0
-        assert h_ref["channel"].max() >= 128
-        np.testing.assert_array_equal(h_tp, h_ref)
-
-    def test_config_variants_match_fused(self):
-        """track_peaks / peak_gated / naive threshold semantics / unroll:
-        two-pass vs fused kernel raw outputs (slots, counts, state stack)."""
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (pack_adcs, pack_state,
-                                                      process_window_pallas)
-        adcs = random_stream(64, 32, seed=39, noise=4, base=900,
-                             n_signals=25)
-        variants = [
-            dict(track_peaks=False),
-            dict(track_peaks=True, peak_gated=True),
-            dict(fir_avx_semantics=False),
-            dict(threshold=700),          # wrap-guard fallback branch
-        ]
-        for extra in variants:
-            cfg = TPGConfig(algorithm=Algorithm.FIR, threshold=5,
-                            tap_exponent=6, **{k: v for k, v in
-                                               extra.items()
-                                               if k != "threshold"})
-            if "threshold" in extra:
-                cfg = TPGConfig(algorithm=Algorithm.FIR,
-                                threshold=extra["threshold"],
-                                tap_exponent=6)
-            st = seed_chanstate(init_chanstate(32), adcs[0],
-                                cfg.rs_memory_factor_x10)
-            pa = jnp.asarray(pack_adcs(adcs))
-            for unroll in (1, 2):
-                outs = [process_window_pallas(
-                            pa, pack_state(st, 32), cfg, tc=32, k_slots=4,
-                            interpret=True, unroll=unroll, fir_twopass=tp)
-                        for tp in (0, 1, 2)]
-                for n, outs_n in zip(("slots", "nclose", "state"),
-                                     zip(*outs)):
-                    for tp, y in enumerate(outs_n[1:], start=1):
-                        np.testing.assert_array_equal(
-                            np.asarray(outs_n[0]), np.asarray(y),
-                            err_msg=f"{extra} unroll={unroll} tp={tp} {n}")
-
-    def test_time2_input(self):
-        """Time-paired ADC words through the two-pass decode."""
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (
-            pack_adcs, pack_adcs_time2, pack_state, process_window_pallas)
-        adcs = random_stream(64, 32, seed=41, noise=4, base=900,
-                             n_signals=25)
-        st = seed_chanstate(init_chanstate(32), adcs[0],
-                            FIR_CFG.rs_memory_factor_x10)
-        a = process_window_pallas(jnp.asarray(pack_adcs(adcs)),
-                                  pack_state(st, 32), FIR_CFG, tc=32,
-                                  k_slots=4, interpret=True)
-        for tp in (1, 2):
-            b = process_window_pallas(jnp.asarray(pack_adcs_time2(adcs)),
-                                      pack_state(st, 32), FIR_CFG, tc=32,
-                                      k_slots=4, interpret=True, unroll=2,
-                                      time_packed=True, fir_twopass=tp)
-            for n, (x, y) in zip(("slots", "nclose", "state"), zip(a, b)):
-                np.testing.assert_array_equal(np.asarray(x), np.asarray(y),
-                                              err_msg=f"tp={tp} {n}")
-
-    def test_words14_input(self):
-        """Fused in-kernel 14-bit unpack through the two-pass decode."""
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.formats import wibeth
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.ingest import pack_words14_jnp
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (
-            pack_state, process_window_pallas, words14_positions)
-        C, T = 128, 64
-        L, nf = C // 64, T // 64
-        rng = np.random.default_rng(43)
-        adcs = (900 + rng.normal(0, 4, size=(T, C))).astype(np.int32)
-        adcs[20:26, 70] += 300
-        frames = wibeth.empty_frames(L * nf)
-        a4 = adcs.reshape(nf, 64, L, 64).transpose(2, 0, 1, 3)
-        wibeth.set_adcs(frames,
-                        a4.reshape(L * nf, 64, 64).astype(np.uint16))
-        W = pack_words14_jnp(jnp.asarray(
-            wibeth.frames_bytes_to_u32(frames).reshape(L, T, 28)))
-        pos = words14_positions(C)
-        st = seed_chanstate(init_chanstate(C), adcs[0],
-                            FIR_CFG.rs_memory_factor_x10)
-        outs = [process_window_pallas(
-                    W, pack_state(st, C, positions=pos), FIR_CFG, tc=32,
-                    k_slots=4, interpret=True, words14=True, fir_twopass=tp)
-                for tp in (0, 1, 2)]
-        for n, outs_n in zip(("slots", "nclose", "state"), zip(*outs)):
-            for tp, y in enumerate(outs_n[1:], start=1):
-                np.testing.assert_array_equal(np.asarray(outs_n[0]),
-                                              np.asarray(y),
-                                              err_msg=f"tp={tp} {n}")
-
-    def test_rejects_invalid_combinations(self):
-        import pytest
-        import jax.numpy as jnp
-        from fdreadoutlibs_tpu.ops import TPGConfig
-        from fdreadoutlibs_tpu.ops.chanstate import (init_chanstate,
-                                                     seed_chanstate)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import (pack_adcs, pack_state,
-                                                      process_window_pallas)
-        adcs = np.full((32, 16), 900, np.int32)
-        cfg_st = TPGConfig(threshold=100)
-        st = seed_chanstate(init_chanstate(16), adcs[0],
-                            cfg_st.rs_memory_factor_x10)
-        pa = jnp.asarray(pack_adcs(adcs))
-        with pytest.raises(ValueError, match="fir_twopass"):
-            process_window_pallas(pa, pack_state(st, 16), cfg_st, tc=32,
-                                  interpret=True, fir_twopass=True)
-        with pytest.raises(ValueError, match="exclusive"):
-            process_window_pallas(pa, pack_state(st, 16), FIR_CFG, tc=32,
-                                  interpret=True, fir_twopass=True,
-                                  fir_packed=True)

@@ -1,44 +1,41 @@
-"""Pallas kernel bit-exactness vs the numpy oracle (interpret mode on CPU;
-the same kernel runs compiled on TPU — exercised by bench.py and the driver)."""
+"""Pallas kernel bit-exactness vs the numpy oracle (interpret mode on the
+CPU; the same kernel runs compiled on the GPU in chip_smoke.py)."""
 
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.ops import TPGConfig, Algorithm
-from fdreadoutlibs_tpu.ops import patterns
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.hits import concat_hits
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.ops.pallas_tpg import (
-    pack_adcs, pack_state, unpack_state,
+from fdreadoutlibs_jax.ops import TPGConfig, Algorithm
+from fdreadoutlibs_jax.ops import patterns
+from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
+from fdreadoutlibs_jax.ops.hits import concat_hits
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.ops.pallas_tpg import (
+    pack_adcs, pack_adcs_time2, pack_state, unpack_state,
     process_window_pallas, decode_pallas_hits)
 from tests.test_tpg_scan import random_stream
 
 
 def run_pallas(adcs, cfg, rs_memory_factor=None, tc=32, k_slots=8,
-               window=None, block_sublanes=None, fir_packed=None,
-               fir_twopass=False, vmem_limit_mb=None):
-    """Pallas-backend equivalent of reference.run_reference (interpret mode).
-
-    vmem_limit_mb is unused in interpret mode but participates in the jit
-    cache key — pass distinct values to force a retrace when module-level
-    trace-time state (e.g. pallas_tpg.SLOT_WORD_CARRY) changed."""
+               window=None, block_sublanes=None, time_packed=False):
+    """Pallas-backend equivalent of reference.run_reference (interpret
+    mode).  Returns (hits, state, dropped)."""
     import jax.numpy as jnp
     adcs = np.asarray(adcs, dtype=np.int32)
     T, C = adcs.shape
     if rs_memory_factor is None:
         rs_memory_factor = cfg.rs_memory_factor_x10
     state = seed_chanstate(init_chanstate(C), adcs[0], rs_memory_factor)
-    packed = pack_adcs(adcs)
+    packed = pack_adcs_time2(adcs) if time_packed else pack_adcs(adcs)
+    rows = 2 if time_packed else 1
     stack = pack_state(state, C, block_sublanes=block_sublanes)
     window = window or T
     parts = []
     dropped = 0
     for t0 in range(0, T, window):
         slots, nclose, stack = process_window_pallas(
-            jnp.asarray(packed[t0:t0 + window]), stack, cfg, tc=tc,
-            k_slots=k_slots, interpret=True, fir_packed=fir_packed,
-            fir_twopass=fir_twopass, vmem_limit_mb=vmem_limit_mb)
+            jnp.asarray(packed[t0 // rows:(t0 + window) // rows]), stack,
+            cfg, tc=tc, k_slots=k_slots, interpret=True,
+            unroll=2 if time_packed else 1, time_packed=time_packed)
         h, d = decode_pallas_hits(slots, nclose, C, tick_offset=t0)
         parts.append(h)
         dropped += d
@@ -178,13 +175,11 @@ def test_pallas_mixed_memory_factor():
 
 
 def test_time_packed_matches_unpacked():
-    """time_packed=True (two samples per int32 word, halved ADC HBM traffic)
-    is bit-exact vs the plain layout for every algorithm family.  Measured
-    ~15% SLOWER on v5e-lite (issue-bound kernel, BENCH_NOTES.md) — kept as
-    an opt-in knob for HBM-contended multi-stream deployments."""
+    """time_packed=True (two samples per int32 word, half the ADC bytes)
+    is bit-exact vs the plain layout for every algorithm family."""
     import jax.numpy as jnp
-    from fdreadoutlibs_tpu.ops.config import Algorithm
-    from fdreadoutlibs_tpu.ops.pallas_tpg import (decode_pallas_hits,
+    from fdreadoutlibs_jax.ops.config import Algorithm
+    from fdreadoutlibs_jax.ops.pallas_tpg import (decode_pallas_hits,
                                                   pack_adcs, pack_adcs_time2,
                                                   pack_state,
                                                   process_window_pallas)
@@ -210,35 +205,3 @@ def test_time_packed_matches_unpacked():
         np.testing.assert_array_equal(ha, hb)
         assert da == db
         np.testing.assert_array_equal(np.asarray(a[2]), np.asarray(b[2]))
-
-
-def test_slot_word_carry_layout_bitexact():
-    """The SLOT_WORD_CARRY emission layout (records carried as separate
-    word registers, stacked once at chunk writeback) is hit- and
-    state-identical to the stacked default across families and k>1
-    overflow (scripts/bench_stepform_ab.py --mode slots is its hardware
-    A/B)."""
-    from fdreadoutlibs_tpu.ops import pallas_tpg as P
-    adcs = random_stream(128, 48, seed=31)
-    orig = P.SLOT_WORD_CARRY   # restore the shipped default, whatever it is
-    for cfg in CONFIGS + [TPGConfig(algorithm=Algorithm.FIR, threshold=5,
-                                    track_peaks=False)]:
-        res = {}
-        for mode in (False, True):
-            P.SLOT_WORD_CARRY = mode
-            try:
-                # distinct vmem values force a retrace (the flag is
-                # trace-time state the jit cache key cannot see); unused
-                # in interpret mode so behavior is identical
-                res[mode] = run_pallas(adcs, cfg, tc=32, k_slots=2,
-                                       vmem_limit_mb=63 if mode else None)
-            finally:
-                P.SLOT_WORD_CARRY = orig
-        h0, st0, d0 = res[False]
-        h1, st1, d1 = res[True]
-        np.testing.assert_array_equal(h0, h1, err_msg=str(cfg.algorithm))
-        assert d0 == d1
-        for k in st0:
-            if k in ("fir_prev", "fir_phase"):
-                continue
-            np.testing.assert_array_equal(st0[k], st1[k], err_msg=k)

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from fdreadoutlibs_tpu.ops import TPGConfig, Algorithm, fixedpoint
-from fdreadoutlibs_tpu.ops import patterns
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
+from fdreadoutlibs_jax.ops import TPGConfig, Algorithm, fixedpoint
+from fdreadoutlibs_jax.ops import patterns
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
 
 
 class TestFixedPoint:

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.ops import TPGConfig, Algorithm
-from fdreadoutlibs_tpu.ops import patterns
-from fdreadoutlibs_tpu.ops.chanstate import init_chanstate, seed_chanstate
-from fdreadoutlibs_tpu.ops.hits import decode_dense, concat_hits
-from fdreadoutlibs_tpu.ops.reference import run_reference
-from fdreadoutlibs_tpu.ops.scan import (process_window_scan, state_to_jnp,
+from fdreadoutlibs_jax.ops import TPGConfig, Algorithm
+from fdreadoutlibs_jax.ops import patterns
+from fdreadoutlibs_jax.ops.chanstate import init_chanstate, seed_chanstate
+from fdreadoutlibs_jax.ops.hits import decode_dense, concat_hits
+from fdreadoutlibs_jax.ops.reference import run_reference
+from fdreadoutlibs_jax.ops.scan import (process_window_scan, state_to_jnp,
                                         compact_hits_device, compact_to_numpy)
 
 

@@ -1,12 +1,12 @@
-"""Tuned-knob discovery (utils/tuning.py + scripts/autotune.py plumbing)."""
+"""Kernel launch parameters and the tuned-file override (utils/tuning.py)."""
 
 import json
 
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.ops import Algorithm, TPGConfig
-from fdreadoutlibs_tpu.utils import tuning
+from fdreadoutlibs_jax.ops import Algorithm, TPGConfig
+from fdreadoutlibs_jax.utils import tuning
 
 
 @pytest.fixture(autouse=True)
@@ -28,42 +28,36 @@ class TestKernelKnobs:
         cfg = TPGConfig(threshold=150)
         k = tuning.kernel_knobs(cfg, 2560, tc=512, unroll=32)
         assert k == {"tc": 512, "unroll": 32, "k_slots": 1,
-                     "block_sublanes": None, "fir_twopass": 0}
+                     "block_sublanes": 1, "num_warps": 4, "num_stages": 1}
 
     def test_shipped_table_governs(self):
-        from fdreadoutlibs_tpu.ops.pallas_tpg import SHIPPED_KNOBS
+        from fdreadoutlibs_jax.utils.tuning import KERNEL_KNOBS
         cfg = TPGConfig(algorithm=Algorithm.FIR, threshold=5)
         k = tuning.kernel_knobs(cfg, 2560)
-        shipped = SHIPPED_KNOBS[Algorithm.FIR]
+        shipped = KERNEL_KNOBS[Algorithm.FIR]
         assert k["tc"] == shipped["tc"]
         assert k["unroll"] == shipped["unroll"]
-        assert k["block_sublanes"] == (shipped["sub"] or None)
+        assert k["block_sublanes"] == shipped["sub"]
+        assert k["num_warps"] == shipped["num_warps"]
+        assert k["num_stages"] == shipped["num_stages"]
 
     def test_tuned_file_overrides(self, tmp_path, monkeypatch):
         path = write_tuned(tmp_path, {"AbsRS": {"sub": 8, "tc": 128,
-                                                "unroll": 16}})
+                                                "unroll": 16,
+                                                "num_warps": 2,
+                                                "num_stages": 3}})
         monkeypatch.setenv("FDREADOUT_TUNED", path)
         cfg = TPGConfig(algorithm=Algorithm.ABS_RS, threshold=150)
         k = tuning.kernel_knobs(cfg, 2560)
         assert k == {"tc": 128, "unroll": 16, "k_slots": 1,
-                     "block_sublanes": 8, "fir_twopass": 0}
+                     "block_sublanes": 8, "num_warps": 2, "num_stages": 3}
         # explicit arguments beat the tuned file (documented precedence)
         k_exp = tuning.kernel_knobs(cfg, 2560, tc=512, unroll=32)
         assert k_exp["tc"] == 512 and k_exp["unroll"] == 32
         # other algorithms keep their defaults
         k2 = tuning.kernel_knobs(TPGConfig(threshold=150), 2560)
-        assert k2["tc"] == 512 and k2["block_sublanes"] is None
-
-    def test_tuned_twopass(self, tmp_path, monkeypatch):
-        """The FIR schedule knob resolves from the tuned file; non-FIR
-        families ignore it (the fused tick is their only schedule)."""
-        path = write_tuned(tmp_path, {"FIR": {"twopass": 1},
-                                      "AbsRS": {"twopass": 1}})
-        monkeypatch.setenv("FDREADOUT_TUNED", path)
-        fir = TPGConfig(algorithm=Algorithm.FIR, threshold=5)
-        assert tuning.kernel_knobs(fir, 2560)["fir_twopass"] == 1
-        rs = TPGConfig(algorithm=Algorithm.ABS_RS, threshold=150)
-        assert tuning.kernel_knobs(rs, 2560)["fir_twopass"] == 0
+        assert k2 == tuning.kernel_knobs(TPGConfig(threshold=150), 2560,
+                                         path="/nonexistent.json")
 
     def test_tuned_k_slots(self, tmp_path, monkeypatch):
         path = write_tuned(tmp_path, {"AbsRS": {"k": 2}})
@@ -71,16 +65,19 @@ class TestKernelKnobs:
         cfg = TPGConfig(algorithm=Algorithm.ABS_RS, threshold=150)
         assert tuning.kernel_knobs(cfg, 2560)["k_slots"] == 2
         # other fields still fall back to shipped
-        assert tuning.kernel_knobs(cfg, 2560)["tc"] == 256
+        assert tuning.kernel_knobs(cfg, 2560)["tc"] == \
+            tuning.KERNEL_KNOBS[Algorithm.ABS_RS]["tc"]
 
-    def test_granule_violating_sub_falls_back(self, tmp_path, monkeypatch):
-        # sub=4 divides the 24-row padded axis but violates the int32
-        # 8-row tile granule — must fall back, not reach Mosaic (ADVICE r2)
-        path = write_tuned(tmp_path, {"FIR": {"sub": 4}})
+    @pytest.mark.parametrize("sub", [3, 6, 16, 0])
+    def test_granule_violating_sub_falls_back(self, tmp_path, monkeypatch,
+                                              sub):
+        # the channel block must be a power of two dividing the 8-row
+        # container granule, or a tuned file could crash the kernel
+        path = write_tuned(tmp_path, {"FIR": {"sub": sub}})
         monkeypatch.setenv("FDREADOUT_TUNED", path)
         cfg = TPGConfig(algorithm=Algorithm.FIR, threshold=5)
         k = tuning.kernel_knobs(cfg, 2560)
-        assert k["block_sublanes"] in (None, 8)
+        assert k["block_sublanes"] == tuning.KERNEL_KNOBS[Algorithm.FIR]["sub"]
 
     def test_mtime_cache_picks_up_rewrites(self, tmp_path, monkeypatch):
         path = write_tuned(tmp_path, {"AbsRS": {"tc": 128}})
@@ -94,45 +91,31 @@ class TestKernelKnobs:
         os.utime(path)                              # ensure mtime moves
         assert tuning.kernel_knobs(cfg, 2560)["tc"] == 64
 
-    def test_tuned_sub_zero_means_whole_block(self, tmp_path, monkeypatch):
-        path = write_tuned(tmp_path, {"FIR": {"sub": 0}})
-        monkeypatch.setenv("FDREADOUT_TUNED", path)
-        cfg = TPGConfig(algorithm=Algorithm.FIR, threshold=5)
-        k = tuning.kernel_knobs(cfg, 2560, tc=512, unroll=32)
-        assert k["block_sublanes"] is None      # explicit whole-block
-
-    def test_incompatible_block_falls_back(self, tmp_path, monkeypatch):
-        # 2560 ch pads to 24 sublane rows; sub=16 doesn't tile it
-        path = write_tuned(tmp_path, {"FIR": {"sub": 16}})
-        monkeypatch.setenv("FDREADOUT_TUNED", path)
-        cfg = TPGConfig(algorithm=Algorithm.FIR, threshold=5)
-        from fdreadoutlibs_tpu.ops.pallas_tpg import default_block_sublanes
-        k = tuning.kernel_knobs(cfg, 2560, tc=512, unroll=32)
-        assert k["block_sublanes"] == default_block_sublanes(cfg, 2560)
-
     def test_unreadable_file_ignored(self, tmp_path, monkeypatch):
         p = tmp_path / "bad.json"
         p.write_text("{not json")
         monkeypatch.setenv("FDREADOUT_TUNED", str(p))
         k = tuning.kernel_knobs(TPGConfig(threshold=150), 2560)
-        assert k["tc"] == 512
+        assert k["tc"] == tuning.KERNEL_KNOBS[Algorithm.SIMPLE_THRESHOLD]["tc"]
 
     def test_malformed_fields_fall_back_per_field(self, tmp_path,
                                                   monkeypatch):
         """Bad tuned values must never crash deployment — each field
         falls back independently (kernel_knobs docs)."""
-        from fdreadoutlibs_tpu.ops.pallas_tpg import SHIPPED_KNOBS
         cfg = TPGConfig(algorithm=Algorithm.FIR, threshold=5)
-        shipped = SHIPPED_KNOBS[Algorithm.FIR]
+        shipped = tuning.KERNEL_KNOBS[Algorithm.FIR]
         for bad in ({"tc": None}, {"tc": "512"}, {"sub": "8"},
-                    {"sub": -8}, {"unroll": 0}, {"tc": True}, "notadict"):
+                    {"sub": -8}, {"unroll": 0}, {"tc": True},
+                    {"num_warps": 0}, {"num_stages": "2"}, "notadict"):
             tuning._cache.clear()
             path = write_tuned(tmp_path, {"FIR": bad})
             monkeypatch.setenv("FDREADOUT_TUNED", path)
             k = tuning.kernel_knobs(cfg, 2560)
             assert k["tc"] == shipped["tc"], bad
             assert k["unroll"] == shipped["unroll"], bad
-            assert k["block_sublanes"] == (shipped["sub"] or None), bad
+            assert k["block_sublanes"] == shipped["sub"], bad
+            assert k["num_warps"] == shipped["num_warps"], bad
+            assert k["num_stages"] == shipped["num_stages"], bad
         # a good field next to a bad one still applies
         tuning._cache.clear()
         path = write_tuned(tmp_path, {"FIR": {"tc": 128, "unroll": None}})
@@ -143,9 +126,9 @@ class TestKernelKnobs:
 
 class TestStreamingIngestPickup:
     def test_ingest_uses_tuned_knobs(self, tmp_path, monkeypatch):
-        from fdreadoutlibs_tpu.ops.ingest import StreamingIngest
+        from fdreadoutlibs_jax.ops.ingest import StreamingIngest
         path = write_tuned(tmp_path, {"SimpleThreshold":
-                                      {"sub": 0, "tc": 128, "unroll": 4}})
+                                      {"sub": 2, "tc": 128, "unroll": 4}})
         monkeypatch.setenv("FDREADOUT_TUNED", path)
         ing = StreamingIngest(TPGConfig(threshold=150), n_links=1,
                               interpret=True)
@@ -157,8 +140,8 @@ class TestStreamingIngestPickup:
 
     def test_ingest_hits_unchanged_by_tuning(self, tmp_path, monkeypatch):
         """Knobs change scheduling only — hit output is identical."""
-        from fdreadoutlibs_tpu.formats import wibeth
-        from fdreadoutlibs_tpu.ops.ingest import StreamingIngest
+        from fdreadoutlibs_jax.formats import wibeth
+        from fdreadoutlibs_jax.ops.ingest import StreamingIngest
 
         rng = np.random.default_rng(3)
         frames = wibeth.empty_frames(2)
@@ -182,11 +165,12 @@ class TestStreamingIngestPickup:
         np.testing.assert_array_equal(h_default[0], h_tuned[0])
         assert len(h_default[0]) > 0
 
-    def test_fir_twopass_hits_unchanged(self, tmp_path, monkeypatch):
-        """A tuned twopass=1 flows end-to-end through StreamingIngest
-        and changes NOTHING about the hits (schedule, not physics)."""
-        from fdreadoutlibs_tpu.formats import wibeth
-        from fdreadoutlibs_tpu.ops.ingest import StreamingIngest
+    def test_fir_launch_params_hits_unchanged(self, tmp_path, monkeypatch):
+        """A tuned channel block flows end-to-end through StreamingIngest
+        and changes NOTHING about the hits or the state (launch geometry,
+        not physics)."""
+        from fdreadoutlibs_jax.formats import wibeth
+        from fdreadoutlibs_jax.ops.ingest import StreamingIngest
 
         rng = np.random.default_rng(5)
         frames = wibeth.empty_frames(2)
@@ -200,49 +184,16 @@ class TestStreamingIngestPickup:
         def run():
             ing = StreamingIngest(cfg, n_links=1, interpret=True)
             ing.submit(batch)
-            return ing.flush()
+            return ing.flush(), np.asarray(ing.stack)
 
-        h_default = run()
-        path = write_tuned(tmp_path, {"FIR": {"twopass": 1}})
+        (h_default, _), st_default = run()
+        path = write_tuned(tmp_path, {"FIR": {"sub": 8, "num_warps": 2}})
         monkeypatch.setenv("FDREADOUT_TUNED", path)
         tuning._cache.clear()
-        h_twopass = run()
-        np.testing.assert_array_equal(h_default[0], h_twopass[0])
-        assert len(h_default[0]) > 0
-
-
-def test_autotune_quick_space_spans_shipped_winners():
-    """--quick must be able to reproduce every shipped winner, or its
-    tuned.json could override a better default (review finding)."""
-    import importlib.util
-    import pathlib
-    spec = importlib.util.spec_from_file_location(
-        "autotune", pathlib.Path(__file__).parent.parent /
-        "scripts" / "autotune.py")
-    autotune = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(autotune)
-    from fdreadoutlibs_tpu.ops.pallas_tpg import SHIPPED_KNOBS
-    quick = {(c["sub"], c["tc"], c["unroll"])
-             for c in autotune.candidate_space(quick=True)}
-    for alg, k in SHIPPED_KNOBS.items():
-        assert (k["sub"], k["tc"], k["unroll"]) in quick, alg
-    from fdreadoutlibs_tpu.ops import Algorithm as _Alg
-    fir_shipped = SHIPPED_KNOBS[_Alg.FIR]
-    fir_quick = {(c["sub"], c["tc"], c["unroll"], c["twopass"])
-                 for c in autotune.fir_space(quick=True)}
-    assert (fir_shipped["sub"], fir_shipped["tc"], fir_shipped["unroll"],
-            fir_shipped["twopass"]) in fir_quick
-
-
-def test_twopass_vmem_floor():
-    """A two-pass FIR schedule must be deployable from surfaces that never
-    pass vmem_limit_mb (StreamingIngest, frame processors): the kernel
-    entry raises the scoped-VMEM floor itself (review finding — the
-    scratch slabs exceed Mosaic's 16 MB default at the shipped tc=512)."""
-    from fdreadoutlibs_tpu.ops.pallas_tpg import effective_vmem_limit_mb
-    assert effective_vmem_limit_mb(None, 0) is None
-    assert effective_vmem_limit_mb(32, 0) == 32
-    assert effective_vmem_limit_mb(None, 1) == 64
-    assert effective_vmem_limit_mb(None, 2) == 64
-    assert effective_vmem_limit_mb(32, 1) == 64
-    assert effective_vmem_limit_mb(128, 2) == 128
+        (h_tuned, _), st_tuned = run()
+        np.testing.assert_array_equal(h_default, h_tuned)
+        assert st_default.shape[2] == 1 and st_tuned.shape[2] == 8
+        np.testing.assert_array_equal(
+            st_default.transpose(1, 0, 2, 3).reshape(st_default.shape[1], -1),
+            st_tuned.transpose(1, 0, 2, 3).reshape(st_tuned.shape[1], -1))
+        assert len(h_default) > 0

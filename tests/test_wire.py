@@ -8,10 +8,10 @@ raw fragment bytes and this framework must agree on every field position.
 import numpy as np
 import pytest
 
-from fdreadoutlibs_tpu.formats import wire
-from fdreadoutlibs_tpu.formats.fragment import (Fragment, FragmentHeader,
+from fdreadoutlibs_jax.formats import wire
+from fdreadoutlibs_jax.formats.fragment import (Fragment, FragmentHeader,
                                                 build_fragment)
-from fdreadoutlibs_tpu.formats.trigprim import TPSet, TPSetType, make_tps
+from fdreadoutlibs_jax.formats.trigprim import TPSet, TPSetType, make_tps
 
 
 # ---- FragmentHeader POD ---------------------------------------------------
@@ -216,7 +216,7 @@ def test_unknown_fragment_type_code_roundtrips():
 # ---- recorder store + request path emit the binary form -------------------
 
 def test_recorder_stores_wire_bytes(tmp_path):
-    from fdreadoutlibs_tpu.tp.recorder import FragmentRecorder
+    from fdreadoutlibs_jax.tp.recorder import FragmentRecorder
     rec = FragmentRecorder(tmp_path, run_number=12)
     payloads = np.arange(2 * 7200, dtype=np.uint8).reshape(2, 7200) % 251
     frag = build_fragment(payloads, run_number=12, trigger_number=1,
@@ -243,7 +243,7 @@ def test_recorder_reads_legacy_npz(tmp_path):
             "detector_id": 0, "error_bits": 0, "version": 5,
             "file": "old.npz", "n_payloads": 1, "size_bytes": 8}
     (tmp_path / "index.jsonl").write_text(json.dumps(meta) + "\n")
-    from fdreadoutlibs_tpu.tp.recorder import FragmentRecorder
+    from fdreadoutlibs_jax.tp.recorder import FragmentRecorder
     rec = FragmentRecorder(tmp_path)
     assert len(rec) == 1
     back = rec.read(0)
@@ -254,9 +254,9 @@ def test_recorder_reads_legacy_npz(tmp_path):
 def test_request_fragment_emits_wire(tmp_path):
     """ReadoutRequestHandler -> Fragment -> wire bytes round trip, with the
     adapter's subsystem carried into the SourceID."""
-    from fdreadoutlibs_tpu.formats import wibeth
-    from fdreadoutlibs_tpu.formats.adapters import get_adapter
-    from fdreadoutlibs_tpu.tp.readout_buffer import ReadoutRequestHandler
+    from fdreadoutlibs_jax.formats import wibeth
+    from fdreadoutlibs_jax.formats.adapters import get_adapter
+    from fdreadoutlibs_jax.tp.readout_buffer import ReadoutRequestHandler
     rh = ReadoutRequestHandler(get_adapter("wibeth"), capacity=64)
     frames = wibeth.empty_frames(4)
     wibeth.fake_timestamps(frames, 1 << 20)
